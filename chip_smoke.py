@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the DVFS scheduler on one NVIDIA card.
+"""Drive the PyTorch port (the DVFS scheduler and the serving path of the
+model stack) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -17,7 +18,32 @@ without the final result line):
    over the three-class fleet (l=4, theta=0.9, EDL, pipelined) with the
    kernel, checked against the same run through the torch grid+golden
    solvers on the card;
-4. offline — ``schedule_offline`` on 20k tasks, the same checks.
+4. offline — ``schedule_offline`` on 20k tasks, the same checks;
+5. attention kernel — ``flash_attention`` (CUDA) against its plain torch
+   version in bf16 at h2o-danube-1.8b's serving shape (B 8, S 2048, H 32,
+   KV 8, dh 80, causal, window 4096), at B 1, S 8192, where the window
+   skips blocks, and on an input built to show a fault at the mask's edges;
+   timed beside the plain version, ``scaled_dot_product_attention`` with
+   the same mask (a yardstick the port never calls) and the bound;
+6. ssd kernel — ``ssd_scan`` (CUDA) against its plain version at
+   mamba2-370m's serving shape (B 8, S 2048, H 32, P 64, N 128) with dt and
+   a from Mamba2's own ranges, y and the final state, and a 256-token
+   segment that starts from a state; timed beside the plain version and
+   the bound;
+7. serve — ``Server.run`` for h2o-danube-1.8b and mamba2-370m at full
+   width (random weights from ``--seed``): 8 requests of 2,048-token
+   prompts, 64 new tokens each.  Checks the kernel launch counts (one per
+   layer of the family's kernel, none of the other), finite logits, the
+   model's prefill through the kernels against the same prefill through
+   the plain versions (each layer's call on its own inputs, then the logits
+   and the whole decode cache), and prefill against decode at full width on
+   both paths.
+
+Each kernel check compares the normalised error, max |got - want| /
+(|want| + rms(want)), with its bar, and shows that the bar would catch the
+fault it is there for: the same measure between the plain version and a
+plain rendering of that fault (a mask edge off by one key, the state
+dropped at the kernel's chunk boundaries or at the start) must exceed it.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -29,6 +55,7 @@ non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -46,7 +73,63 @@ CLASSES = ("gtx-1080ti", "tpu-v5e", "v100-sxm2")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, and
 # HBM3 bandwidth.
 PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12   # dense tensor-core rate
 PEAK_BYTES = 3.35e12
+
+# The serve phase: requests, prompt length, new tokens; and the
+# prefill-against-decode check (requests, decode steps).
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
+CONSIST_REQUESTS, CONSIST_STEPS = 2, 4
+DECODE_PROFILE = 8   # decode steps under the profiler
+SERVE_ARCHS = (("h2o-danube-1.8b", "flash_attention"),
+               ("mamba2-370m", "ssd_scan"))
+# Kernel phases: (B, S, H, KV, dh, window) causal attention at danube's
+# serving shape and at a length where the window skips blocks; (B, S, H,
+# P, N) of the SSD scan at mamba2-370m's serving shape.
+ATTN_SHAPES = (("serve", (8, 2048, 32, 8, 80, 4096)),
+               ("long", (1, 8192, 32, 8, 80, 4096)))
+# An input that shows a fault at the mask's edges: a ragged length, a window
+# that ends inside a 64-key tile, and q scaled so that the scores have std 4
+# and a few keys carry most of each row.  One key too many or too few at the
+# window's or the diagonal's edge then moves many rows by much of their size.
+ATTN_EDGE = (2, 1000, 32, 8, 80, 100)
+ATTN_EDGE_Q_SCALE = 4.0
+SSD_SHAPE = (8, 2048, 32, 64, 128)
+# Mamba2's initialisation ranges (arXiv:2405.21060 and its reference code):
+# softplus(dt_bias) log-uniform in [1e-3, 0.1], A = -a uniform in [1, 16].
+# At the small end a head's state decays by exp(-0.064) over a 64-token
+# chunk, so what one chunk carries into the next shows in y and the final
+# state; at the large end it is gone within a few tokens.
+SSD_DT_RANGE, SSD_A_RANGE = (1e-3, 0.1), (1.0, 16.0)
+SSD_INIT_LEN = 256   # tokens of the segment that starts from a state
+# Kernel against plain version, bf16: the normalised error (norm_err).  The
+# two versions tile the sums differently (64-key tiles against 1,024, SSD
+# chunks of 64 against 256), so the same bf16 roundings land on other
+# values; where an output is a cancelling sum its error shows against the
+# RMS floor.  Readings on an H100 (chip_smoke.py, one run): attention 1.6e-2
+# (serve), 1.7e-2 (long), 6.6e-3 (edge), 1.2e-2 at the worst danube layer;
+# SSD 1.4e-2 (y), 1.2e-2 (final state), 2.7e-2 at the worst mamba2 layer.
+# Each bar is about three times the largest reading, and the plain
+# renderings of the faults it guards against read 0.95-5 against it.
+ATTN_BAR, SSD_BAR = 6e-2, 8e-2
+# The model's whole prefill through the kernels against the same prefill
+# through the plain versions, same weights and tokens: max |difference| over
+# max |plain| of the logits and of every tensor of the decode cache (each
+# layer's kernel call on its own inputs is held to ATTN_BAR or SSD_BAR; here
+# the layers' differences compound through the depth).  Readings on an H100
+# (chip_smoke.py, one run): 4.0e-2 (danube logits), 3.9e-2 (its k cache),
+# 2.0-2.2e-2 (mamba2), the order of the plain path's own prefill-against-
+# decode gap below; the bar is 2.5 times the largest.
+PLAIN_PATH_BAR = 1e-1
+# Prefill against decode at full width: max |decode - prefill| logits over
+# max |prefill| logits.  The two sides round bf16 activations at different
+# points (tiled prefill against one-token decode, other matmul shapes), and
+# the gap grows with depth.  With no kernel at all, through the plain
+# versions on the card, it reads 3.5e-2 (danube) and 4.8e-2 (mamba2) at full
+# width (chip_smoke.py, one H100 run), so the bar is twice that; the JAX
+# package's own check (tests/test_decode_consistency.py) allows 0.05
+# absolute on reduced-config logits whose max is about 0.57, i.e. ~9%.
+CONSIST_BAR = 1e-1
 
 # Float32 operations per task row of csrc/dvfs_opt.cu, counted from the
 # source with every add, subtract, multiply, divide, square root, min/max,
@@ -154,6 +237,73 @@ def event_ms(torch, fn, reps: int) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def norm_err(got, want) -> float:
+    """max |got - want| / (|want| + rms(want)): each element's error against
+    its own size, with the RMS of ``want`` as the floor for elements near
+    zero."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean().sqrt()
+    return ((g - w).abs() / (w.abs() + rms)).max().item()
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().max() / w.abs().max()).item()
+
+
+def attention_bound(B, H, KV, S, dh, causal, window) -> tuple:
+    """Least time for attention over these shapes: the larger of the
+    operations of the live (unmasked) score entries, 4 B H dh per entry at
+    the bf16 peak, and the bytes of q, k, v and o once each (bf16)."""
+    live = 0
+    for q in range(S):
+        hi = q if causal else S - 1
+        lo = max(0, q - window + 1) if window else 0
+        live += hi - lo + 1
+    t_ops = 4.0 * B * H * dh * live / PEAK_BF16_OPS * 1e3
+    t_bytes = 2.0 * B * S * dh * (2 * H + 2 * KV) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ssd_bound(B, S, H, P, N, q) -> tuple:
+    """Least time for the SSD scan: the larger of the chunked products'
+    operations at the kernel's chunk q (intra-chunk on and below the
+    diagonal, C B^T once per chunk for all heads, the state term and the
+    state update) at the bf16 peak, and the bytes of x, dt, a, b, c in and
+    y and the f32 final state out."""
+    nc = -(-S // q)
+    tri = q * (q + 1) // 2
+    ops = (B * nc * 2 * tri * N                          # C B^T, shared
+           + B * H * nc * (2 * tri * P + 4 * q * N * P))  # M x, C s, update
+    byts = (B * S * H * P * 2 * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2
+            + B * H * P * N * 4)
+    t_ops = ops / PEAK_BF16_OPS * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_ms(torch, q, k, v, causal, window):
+    """Time of one ``scaled_dot_product_attention`` call on the same inputs
+    and mask (GQA through ``enable_gqa``), or None if this torch has no such
+    call for them.  A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    S = q.shape[1]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = None
+    if window is not None and window < S:
+        pos = torch.arange(S, device=q.device)
+        d = pos[:, None] - pos[None, :]
+        mask = (d < window) & (d >= 0 if causal else True)
+    try:
+        return event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), 20)
+    except (RuntimeError, TypeError) as exc:
+        print(f"  sdpa yardstick unavailable: {exc}", flush=True)
+        return None
 
 
 def check_schedule(checks, res, n: int, name: str):
@@ -356,6 +506,12 @@ def main(argv=None) -> int:
           f"{len(batch) / wk:.1f} tasks/s ({wk:.3f} s) vs "
           f"{len(batch) / wp:.1f} tasks/s ({wp:.3f} s) grid+golden", flush=True)
 
+    attn = attention_phase(checks, torch, dev, args.seed)
+    ssd = ssd_phase(checks, torch, dev, args.seed)
+    serve = {kernel: serve_phase(checks, np, torch, dev, arch, kernel,
+                                 args.seed)
+             for arch, kernel in SERVE_ARCHS}
+
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
               file=sys.stderr)
@@ -371,11 +527,416 @@ def main(argv=None) -> int:
         "ms": k_main, "plain_ms": p_main, "bound_ms": b_main,
         "bound_by": by_main, "library_ms": None,
         "ms_300k": k_main, "ms_1m": k_1m, "plain_ms_1m": p_1m,
-        "bound_ms_1m": b_1m}]}), flush=True)
+        "bound_ms_1m": b_1m}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        **attn["serve"], **serve["flash_attention"],
+        "long_8192": attn["long"], "edge": attn["edge"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:33",
+        **ssd, **serve["ssd_scan"]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def attention_phase(checks, torch, dev, seed: int) -> dict:
+    """The attention kernel against its plain version at two shapes, both
+    timed beside the library call and the bound, and on the edge input;
+    at each, plain renderings of mask faults show what the bar catches."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def inputs(B, S, H, KV, dh, q_scale=1.0):
+        q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev)
+                   for n in (H, KV, KV))
+        return ((q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16),
+                v.to(torch.bfloat16))
+
+    def plain(q_, k_, v_, w):
+        return fa.flash_attention_plain(q_, k_, v_, causal=True, window=w)
+
+    def compare(key, q, k, v, window):
+        got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+        want = plain(q, k, v, window)
+        err = norm_err(got, want)
+        abs_err = (got.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(got.float()).all())
+        checks.expect(finite and err <= ATTN_BAR,
+                      f"attention {key}: finite {finite}, norm err {err} <= "
+                      f"{ATTN_BAR}")
+        # Plain renderings of mask faults, each against the right answer:
+        # the diagonal key dropped (row i then sees keys i-W+1..i-1, which is
+        # q[1:] over k[:-1] with window W-1, for the rows from 1 on); and
+        # where the window binds, the window one key wider or narrower, and
+        # one key past the diagonal taken (row i sees i-W+1..i+1: q[:-1]
+        # over k[1:] with window W+1, exact for the rows from W on).
+        faults = {"diagonal dropped": norm_err(
+            plain(q[:, 1:], k[:, :-1], v[:, :-1], window - 1), want[:, 1:])}
+        if window < q.shape[1] - 1:
+            faults["key past diagonal"] = norm_err(
+                plain(q[:, :-1], k[:, 1:], v[:, 1:], window + 1)[:, window:],
+                want[:, window:-1])
+            faults["window+1"] = norm_err(plain(q, k, v, window + 1), want)
+            faults["window-1"] = norm_err(plain(q, k, v, window - 1), want)
+        checks.expect(min(faults.values()) > ATTN_BAR,
+                      f"attention {key}: every mask fault's norm err {faults} "
+                      f"exceeds the bar {ATTN_BAR}")
+        return err, abs_err, faults
+
+    def faults_text(faults):
+        return ("plain renderings of mask faults, norm err against the right "
+                "answer: " + ", ".join(f"{name} {e:.3e}"
+                                       for name, e in faults.items()))
+
+    out = {}
+    for key, (B, S, H, KV, dh, window) in ATTN_SHAPES:
+        q, k, v = inputs(B, S, H, KV, dh)
+        err, abs_err, faults = compare(key, q, k, v, window)
+        k_ms = event_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True, window=window), 20)
+        p_ms = event_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window), 20)
+        lib_ms = sdpa_ms(torch, q, k, v, True, window)
+        b_ms, b_by = attention_bound(B, H, KV, S, dh, True, window)
+        out[key] = {"max_abs_err": abs_err, "norm_err": err, "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "fault_norm_errs": faults,
+                    "shape": [B, S, H, KV, dh, "causal", window]}
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"phase attention kernel {key}: B {B} S {S} H {H} KV {KV} dh "
+              f"{dh} causal window {window}: norm err {err:.3e}, max abs err "
+              f"{abs_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"sdpa {lib}, bound {b_ms:.4f} ms ({b_by}), kernel at "
+              f"{b_ms / k_ms:.1%} of the bound; {faults_text(faults)}",
+              flush=True)
+        del q, k, v
+
+    B, S, H, KV, dh, window = ATTN_EDGE
+    q, k, v = inputs(B, S, H, KV, dh, ATTN_EDGE_Q_SCALE)
+    err, abs_err, faults = compare("edge", q, k, v, window)
+    out["edge"] = {"max_abs_err": abs_err, "norm_err": err,
+                   "fault_norm_errs": faults,
+                   "shape": [B, S, H, KV, dh, "causal", window,
+                             f"q x{ATTN_EDGE_Q_SCALE}"]}
+    print(f"phase attention kernel edge: B {B} S {S} H {H} KV {KV} dh {dh} "
+          f"causal window {window}, q x{ATTN_EDGE_Q_SCALE}: norm err "
+          f"{err:.3e}, max abs err {abs_err:.3e}; {faults_text(faults)}",
+          flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_phase(checks, torch, dev, seed: int) -> dict:
+    """The SSD kernel against its plain version at mamba2-370m's serving
+    shape, x/b/c as strided slices of one activation as the model passes
+    them, without and with an initial state; plain renderings of carry
+    faults show what the bar catches; both versions timed beside the
+    bound."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    B, S, H, P, N = SSD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    # One head at each point of Mamba2's ranges, spread evenly (head 0 the
+    # longest-lived): dt = softplus(dt_bias + a token's own term), with
+    # softplus(dt_bias) log-spaced over SSD_DT_RANGE.
+    dt0 = torch.logspace(math.log10(SSD_DT_RANGE[0]),
+                         math.log10(SSD_DT_RANGE[1]), H, device=dev)
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))         # softplus^-1
+    dt = torch.nn.functional.softplus(
+        dt_bias + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
+    a = -torch.linspace(*SSD_A_RANGE, H, device=dev)
+
+    def compare(key, init, n=S):
+        args = (x[:, :n], dt[:, :n], a, b[:, :n], c[:, :n])
+        y, fin = ss.ssd_scan_cuda(*args, init)
+        y_ref, fin_ref = ss.ssd_scan_plain(*args, 256, init)
+        errs = {"y": norm_err(y, y_ref), "final_state": norm_err(fin, fin_ref)}
+        finite = bool(torch.isfinite(y.float()).all()
+                      and torch.isfinite(fin).all())
+        checks.expect(finite and max(errs.values()) <= SSD_BAR,
+                      f"ssd {key}: finite {finite}, norm errs {errs} <= "
+                      f"{SSD_BAR}")
+        abs_err = (y.float() - y_ref.float()).abs().max().item()
+        return y_ref, fin_ref, errs, abs_err
+
+    y_ref, fin_ref, errs, abs_err = compare("zero initial state", None)
+    # A continuation segment of SSD_INIT_LEN tokens from the state a previous
+    # segment of the same stream would hand over (short enough that the
+    # initial state still shows in the final one), and the same segment
+    # from zero.
+    n = SSD_INIT_LEN
+    y_init, fin_init, errs_init, _ = compare("initial state", fin_ref, n)
+    y_zero, fin_zero = ss.ssd_scan_plain(x[:, :n], dt[:, :n], a, b[:, :n],
+                                         c[:, :n], 256)
+
+    # Plain renderings of carry faults, each against the right answer: the
+    # state dropped at every one of the kernel's chunk boundaries (each
+    # KERNEL_CHUNK tokens scanned from zero), and the initial state ignored.
+    q = ss.KERNEL_CHUNK
+    nc = S // q
+
+    def chunks(t):
+        return t.reshape(B * nc, q, *t.shape[2:])
+
+    y_drop, fin_drop = ss.ssd_scan_plain(chunks(x), chunks(dt), a, chunks(b),
+                                         chunks(c), q)
+    faults = {
+        "carry dropped: y": norm_err(y_drop.reshape(B, S, H, P), y_ref),
+        "carry dropped: final state": norm_err(
+            fin_drop.reshape(B, nc, H, P, N)[:, -1], fin_ref),
+        "initial state ignored: y": norm_err(y_zero, y_init),
+        "initial state ignored: final state": norm_err(fin_zero, fin_init),
+    }
+    checks.expect(min(faults.values()) > SSD_BAR,
+                  f"ssd: every carry fault's norm err {faults} exceeds the "
+                  f"bar {SSD_BAR}")
+    k_ms = event_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, b, c), 20)
+    p_ms = event_ms(torch, lambda: ss.ssd_scan_plain(x, dt, a, b, c, 256), 20)
+    b_ms, b_by = ssd_bound(B, S, H, P, N, q)
+    print(f"phase ssd kernel: B {B} S {S} H {H} P {P} N {N}, dt from "
+          f"{SSD_DT_RANGE}, -a from {SSD_A_RANGE}: norm err y "
+          f"{errs['y']:.3e}, final state {errs['final_state']:.3e} (max abs "
+          f"err y {abs_err:.3e}); over {n} tokens from an initial state y "
+          f"{errs_init['y']:.3e}, final state {errs_init['final_state']:.3e}; "
+          f"plain renderings of carry faults, norm err against the right "
+          f"answer: " + ", ".join(f"{name} {e:.3e}"
+                                  for name, e in faults.items())
+          + f"; kernel {k_ms:.4f} ms, plain (chunk 256) {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_ms:.1%} of the bound",
+          flush=True)
+    del xbc, x, b, c, dt, y_ref, fin_ref, y_init, fin_init, y_drop, fin_drop
+    del y_zero, fin_zero
+    torch.cuda.empty_cache()
+    return {"max_abs_err": abs_err, "norm_err": errs["y"],
+            "final_state_norm_err": errs["final_state"],
+            "init_state_norm_errs": errs_init, "fault_norm_errs": faults,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [B, S, H, P, N]}
+
+
+@contextlib.contextmanager
+def model_kernels(attn_fn, ssd_fn):
+    """Put ``attn_fn`` and ``ssd_fn`` where the model calls its two kernels
+    (``blockwise_attention`` and ``ssd_chunked`` call them by these names),
+    for comparisons on the same weights and tokens."""
+    from repro_torch.models import attention, ssm
+
+    saved = attention.flash_attention_kernel, ssm.ssd_scan_kernel
+    attention.flash_attention_kernel, ssm.ssd_scan_kernel = attn_fn, ssd_fn
+    try:
+        yield
+    finally:
+        attention.flash_attention_kernel, ssm.ssd_scan_kernel = saved
+
+
+def paired_kernels(errs: list):
+    """``model_kernels`` arguments that run each call through the kernel and
+    through its plain version on the same inputs, append the normalised
+    error of each call to ``errs`` and go on with the kernel's result."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    def attn(q, k, v, *, causal, window=None, chunk=fa.DEFAULT_CHUNK):
+        got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                        chunk=chunk)
+        errs.append(norm_err(got, fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window, chunk=chunk)))
+        return got
+
+    def ssd(x, dt, a, b, c, chunk, init_state=None):
+        y, fin = ss.ssd_scan_kernel(x, dt, a, b, c, chunk, init_state)
+        y_p, fin_p = ss.ssd_scan_plain(x, dt, a, b, c, chunk, init_state)
+        errs.append(max(norm_err(y, y_p), norm_err(fin, fin_p)))
+        return y, fin
+
+    return attn, ssd
+
+
+def prefill_vs_decode(torch, model, params, toks, vocab: int):
+    """prefill(toks[:, :s0]), then decode steps fed the known tokens, against
+    the last logits of prefill(toks[:, :s0 + j]) for j = 1..CONSIST_STEPS
+    (the JAX package's tests/test_decode_consistency.py).  Returns the first
+    prefill's (logits, cache), the largest step error over max |logits|,
+    each step's error, and whether every logit was finite."""
+    s0 = toks.shape[1] - CONSIST_STEPS
+    max_seq = toks.shape[1] + 8
+    logits, cache = model.prefill(params, {"tokens": toks[:, :s0]},
+                                  max_seq=max_seq)
+    first = (logits, {name: t.clone() for name, t in cache.items()})
+    errs, scale, finite = [], 0.0, bool(torch.isfinite(logits).all())
+    for j in range(1, CONSIST_STEPS + 1):
+        logits, cache = model.decode_step(params, cache, toks[:, s0 + j - 1],
+                                          s0 + j - 1)
+        want, _ = model.prefill(params, {"tokens": toks[:, :s0 + j]},
+                                max_seq=max_seq)
+        finite = finite and bool(torch.isfinite(logits).all()
+                                 and torch.isfinite(want).all())
+        real = want[:, :vocab]
+        errs.append((logits[:, :vocab] - real).abs().max().item())
+        scale = max(scale, real.abs().max().item())
+    return first, max(errs) / scale, errs, finite
+
+
+def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
+                seed: int) -> dict:
+    """``Server.run`` at full width with the launch counts read around it;
+    then, on the same weights, the prefill through the kernels against the
+    prefill through the plain versions, prefill against decode on both
+    paths, and a profiled window of decode steps.  Returns the family
+    kernel's launches in the run and the kernels-against-plain errors."""
+    from repro_torch.kernels import dvfs_opt, flash_attention, ssd_scan
+    from repro_torch.launch.serve import Request, Server, preset_config
+    from repro_torch.models.model import Model
+
+    counters = {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
+                "flash_attention": flash_attention.flash_attention_cuda,
+                "ssd_scan": ssd_scan.ssd_scan_cuda}
+    cfg = preset_config(arch, "full")
+    model = Model(cfg, device=dev)
+    params = model.init(seed)
+    n_params = sum(t.numel() for t in _tensors(params))
+    srv = Server(model, params, SERVE_REQUESTS,
+                 max_seq=SERVE_PROMPT + SERVE_GEN + 8, device=dev)
+    del params
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+
+    def requests(gen):
+        return [Request(rid=i, prompt=prompts[i], max_new=gen)
+                for i in range(SERVE_REQUESTS)]
+
+    srv.run(requests(2))                       # warm-up: first-call set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    stats = srv.run(requests(SERVE_GEN))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {name: (cfg.n_layers if name == kernel else 0) for name in counters}
+    checks.expect(launches == want,
+                  f"serve {arch}: launches {launches}, want {want}")
+    checks.expect(stats["logits_finite"], f"serve {arch}: logits finite")
+    checks.expect(stats["new_tokens"] == SERVE_REQUESTS * SERVE_GEN,
+                  f"serve {arch}: {stats['new_tokens']} new tokens")
+
+    # The kernels at the model's own inputs (prompt length s0 = 2044, not a
+    # multiple of any tile): each layer's kernel call against its plain
+    # version on the same activations, held to the kernel phase's bar; the
+    # whole prefill through the kernels against the same prefill through
+    # the plain versions, where the layers' differences compound; and
+    # prefill against decode on each path.
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    toks = torch.from_numpy(prompts[:CONSIST_REQUESTS]).to(dev)
+    s0, V = SERVE_PROMPT - CONSIST_STEPS, cfg.vocab_size
+    layer_errs = []
+    with model_kernels(*paired_kernels(layer_errs)):
+        model.prefill(srv.params, {"tokens": toks[:, :s0]},
+                      max_seq=SERVE_PROMPT + 8)
+    bar = ATTN_BAR if kernel == "flash_attention" else SSD_BAR
+    worst = max(range(len(layer_errs)), key=layer_errs.__getitem__)
+    checks.expect(len(layer_errs) == cfg.n_layers
+                  and layer_errs[worst] <= bar,
+                  f"serve {arch}: {len(layer_errs)} layer calls, kernel "
+                  f"against plain at the model's inputs, worst norm err "
+                  f"{layer_errs[worst]} (layer {worst}) <= {bar}")
+    (k_logits, k_cache), rel, errs, finite = prefill_vs_decode(
+        torch, model, srv.params, toks, V)
+    before = {name: fn.launches for name, fn in counters.items()}
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain):
+        (p_logits, p_cache), p_rel, p_errs, p_finite = prefill_vs_decode(
+            torch, model, srv.params, toks, V)
+    plain_launches = {name: fn.launches - before[name]
+                      for name, fn in counters.items()}
+    checks.expect(not any(plain_launches.values()),
+                  f"serve {arch}: the plain path launched {plain_launches}")
+    pairs = {"logits": (k_logits[:, :V], p_logits[:, :V]),
+             **{f"cache {name}": (k_cache[name], p_cache[name])
+                for name in k_cache}}
+    vs_plain = {name: max_rel(*pair) for name, pair in pairs.items()}
+    vs_plain_norm = {name: norm_err(*pair) for name, pair in pairs.items()}
+    checks.expect(max(vs_plain.values()) <= PLAIN_PATH_BAR,
+                  f"serve {arch}: prefill through the kernels against the "
+                  f"plain versions, err/max {vs_plain} <= {PLAIN_PATH_BAR}")
+    checks.expect(finite and p_finite and rel <= CONSIST_BAR,
+                  f"serve {arch}: prefill vs decode err/max {rel} <= "
+                  f"{CONSIST_BAR}, finite {finite} (plain path {p_finite})")
+    del k_cache, p_cache
+
+    # Where decode time goes: DECODE_PROFILE steps at the serving batch
+    # under torch.profiler (device activity): busy time against the wall.
+    from torch.profiler import ProfilerActivity, profile
+    logits, cache = model.prefill(srv.params, {"tokens": torch.from_numpy(
+        prompts).to(dev)}, max_seq=SERVE_PROMPT + SERVE_GEN + 8)
+    nxt = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for step in range(DECODE_PROFILE):
+            logits, cache = model.decode_step(srv.params, cache, nxt,
+                                              SERVE_PROMPT + step)
+            nxt = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = sorted(prof.key_averages(), reverse=True,
+                    key=lambda e: e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events if e.self_device_time_total > 0)
+    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in events[:5])
+    print(f"phase serve {arch}: {n_params} parameters (config count "
+          f"{cfg.param_count()}), {SERVE_REQUESTS} requests x "
+          f"{SERVE_PROMPT} prompt + {SERVE_GEN} new: prefill "
+          f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s "
+          f"({stats['tok_per_s']:.1f} tokens/s), peak memory "
+          f"{peak / 2**30:.3f} GiB, launches {launches}; kernel against "
+          f"plain at each layer's inputs, norm err worst "
+          f"{layer_errs[worst]:.3e} (layer {worst}), median "
+          f"{sorted(layer_errs)[len(layer_errs) // 2]:.3e}; "
+          f"whole prefill through the kernels against the plain versions, "
+          f"err/max (norm err): "
+          + ", ".join(f"{name} {e:.3e} ({vs_plain_norm[name]:.3e})"
+                      for name, e in vs_plain.items())
+          + f"; prefill vs decode err/max {rel:.3e} (max abs err "
+          f"{max(errs):.4e}, per step {[f'{e:.3e}' for e in errs]}), plain "
+          f"path {p_rel:.3e} (per step {[f'{e:.3e}' for e in p_errs]})",
+          flush=True)
+    print(f"phase serve {arch} decode profile: {DECODE_PROFILE} steps at "
+          f"batch {SERVE_REQUESTS}, wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / 1e3 / wall:.4f}, "
+          f"{n_kernels / DECODE_PROFILE:.0f} device kernels a step; device "
+          f"top: {top}", flush=True)
+    del srv, model, cache, logits
+    torch.cuda.empty_cache()
+    return {"launches": launches[kernel],
+            "layer_norm_err_worst": layer_errs[worst],
+            "model_vs_plain_rel_errs": vs_plain,
+            "model_vs_plain_norm_errs": vs_plain_norm,
+            "prefill_vs_decode": rel, "prefill_vs_decode_plain": p_rel}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

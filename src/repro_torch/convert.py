@@ -9,6 +9,9 @@ Algorithm-1 output into the port's schedulers (``cfgs=`` of
 for bit.  Nothing here imports the reference: pass
 ``dataclasses.asdict(x)`` or ``x._asdict()`` of its records, or their
 ``astuple()`` / tuple form.
+
+:func:`model_params_from_arrays` does the same for a model: the reference's
+``Model.init`` pytree with numpy leaves becomes the port's parameter dict.
 """
 
 from __future__ import annotations
@@ -16,10 +19,13 @@ from __future__ import annotations
 from typing import Mapping, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.dvfs import DvfsParams
 from repro_torch.core.single_task import TaskConfig
 from repro_torch.core.tasks import TaskSet
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import FAMILIES
 
 Fields = Union[Mapping, Sequence]
 
@@ -63,3 +69,41 @@ def task_config_from_arrays(fields: Fields) -> TaskConfig:
     f = _fields(fields, TaskConfig._fields)
     return TaskConfig(**{k: (int(v) if k == "n_deadline_prior" else np.array(v))
                          for k, v in f.items()})
+
+
+def _tensors(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def model_params_from_arrays(cfg: ModelConfig, tree: Mapping,
+                             device="cpu") -> dict:
+    """The port's parameters from the reference's ``Model.init`` pytree
+    with numpy leaves (``jax.tree.map(np.asarray, params)``): the same keys
+    and values (copied, dtypes kept), with the stacked ``[L, ...]`` leaves of
+    ``tree["layers"]`` split into a list of ``L`` per-layer dicts."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    out = {k: _tensors(v, device) for k, v in tree.items() if k != "layers"}
+
+    def layer(sub, i):
+        if isinstance(sub, Mapping):
+            return {k: layer(v, i) for k, v in sub.items()}
+        return sub[i]
+
+    stacked = _tensors(tree["layers"], device)
+    n = {len(v) for v in _leaves(stacked)}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"layer stacks of lengths {sorted(n)}, config has "
+                         f"{cfg.n_layers} layers")
+    out["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -25,14 +25,22 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("dvfs_opt",)
+KERNELS = ("dvfs_opt", "flash_attention", "ssd_scan")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
-#: sm_90a keeps Hopper-only instructions available; -fmad=false keeps every
-#: a*b+c rounded twice, as in the plain torch versions.  No --use_fast_math:
+#: sm_90a keeps Hopper-only instructions available.  No --use_fast_math:
 #: division and square root stay IEEE round-to-nearest.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+#: Flags of one kernel only.  dvfs_opt is held bit-equal to its plain torch
+#: version, so -fmad=false keeps every a*b+c there rounded twice; the model
+#: kernels are held at bf16 tolerances and keep FMA contraction.
+KERNEL_FLAGS = {"dvfs_opt": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    """The ``nvcc`` flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -53,9 +61,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to under :data:`NVCC_FLAGS`."""
+    """Where ``csrc/<name>.cu`` builds to under its :func:`flags`."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -76,7 +84,7 @@ def build(names: Sequence[str] = KERNELS, verbose: bool = False) -> Dict[str, Pa
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [compiler, *NVCC_FLAGS, *extra, "-o", tmp,
+        cmd = [compiler, *flags(name), *extra, "-o", tmp,
                str(CSRC / f"{name}.cu")]
         jobs[name] = (library_path(name), Path(tmp), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

@@ -1,10 +1,10 @@
 """Public wrappers around the port's kernels, and its one device policy.
 
-Every entry point of the port that solves takes ``device=None`` and passes
-it through :func:`resolve_device`: ``None`` means the CUDA card, and
-without one it raises rather than running quietly on the host.  The tests
-pass ``device="cpu"``, which sends every solve through the plain torch
-versions.
+Every entry point of the port that solves or runs a model takes
+``device=None`` and passes it through :func:`resolve_device`: ``None``
+means the CUDA card, and without one it raises rather than running quietly
+on the host.  The tests pass ``device="cpu"``, which sends every call
+through the plain torch versions.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ from repro_torch.core import solver_cache
 from repro_torch.core.dvfs import WIDE, DvfsParams, ScalingInterval
 from repro_torch.kernels import layout
 from repro_torch.kernels.dvfs_opt import DEFAULT_GRID, dvfs_solve_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.layout import DvfsSolution
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,6 +38,33 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
                            "available")
     return dev
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, device=None) -> torch.Tensor:
+    """Flash attention in the JAX layout: q ``[B, H, S, dh]``, k/v
+    ``[B, KV, Sk, dh]`` (tensors or arrays) -> ``[B, H, S, dh]`` on
+    ``device``.  The kernel reads the layout through strides (transposed
+    views, no copy); it takes dh as it is and scales by the real
+    ``dh ** -0.5``, where the reference's wrapper pads dh to 128 for the
+    MXU and rescales q."""
+    device = resolve_device(device)
+    q, k, v = (torch.as_tensor(t).to(device) for t in (q, k, v))
+    out = flash_attention_kernel(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window)
+    return out.transpose(1, 2)
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int = 128, device=None) -> torch.Tensor:
+    """The SSD chunked scan without the D-skip term: x ``[B, S, H, P]``,
+    dt ``[B, S, H]``, a ``[H]``, b/c ``[B, S, N]`` (tensors or arrays) ->
+    y ``[B, S, H, P]`` in x's dtype on ``device``.  ``chunk`` is the plain
+    version's; the CUDA kernel takes its own (the same function)."""
+    device = resolve_device(device)
+    x, dt, a, b, c = (torch.as_tensor(t).to(device) for t in (x, dt, a, b, c))
+    y, _ = ssd_scan_kernel(x, dt, a, b, c, chunk)
+    return y
 
 
 def kernel_tag(device: torch.device, grid: tuple = DEFAULT_GRID) -> str:

@@ -1,7 +1,10 @@
-"""The oracle for the ``dvfs_opt`` kernel: the production grid+golden
-solver (the allclose target of the kernel tests)."""
+"""Oracles for every kernel of the port (the allclose targets): dense
+softmax attention, the token-by-token SSD recurrence, and the production
+grid+golden solver for ``dvfs_opt``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -10,6 +13,38 @@ from repro_torch.core import single_task
 from repro_torch.core.dvfs import WIDE, DvfsParams, ScalingInterval
 from repro_torch.core.solver_cache import to_numpy
 from repro_torch.kernels import layout as L
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Dense softmax attention in float32.  q: [B, H, S, dh];
+    k/v: [B, KV, Sk, dh]."""
+    B, H, Sq, dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g = H // KV
+    k = torch.repeat_interleave(k, g, dim=1)
+    v = torch.repeat_interleave(v, g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (dh ** -0.5)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Sequential SSD recurrence (no D-skip), the ``ssd_scan`` contract."""
+    from repro_torch.models.ssm import ssd_reference
+    y, _ = ssd_reference(x, dt, a, b, c)
+    return y.to(x.dtype)
 
 
 def dvfs_solve_ref(tasks: np.ndarray, interval: ScalingInterval = WIDE,

@@ -1,0 +1,162 @@
+"""Serving launcher: a static batch, prefilled once and decoded greedily.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --preset smoke --requests 4 --gen 16 --device cpu
+
+Port of the JAX package's ``launch/serve.py`` on one card: the prompts are
+left-padded to one length (the pads are not masked, as there), one prefill
+builds the decode cache, and ``Model.decode_step`` runs once per new token
+for the whole batch.  Weights are random, drawn from ``--seed``.  Without
+``--device`` it runs on the CUDA card and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.models.layers import serving_copy
+from repro_torch.models.model import Model
+
+
+def preset_config(arch: str, preset: str):
+    """The JAX package's ``launch/train.py::preset_config``: ``full`` is the
+    assigned config verbatim, ``smoke`` its CPU-size reduction, ``100m`` a
+    ~100M-parameter same-family config."""
+    cfg = registry.get_config(arch)
+    if preset == "full":
+        return cfg
+    if preset == "smoke":
+        return cfg.reduced()
+    if preset == "100m":
+        return dataclasses.replace(
+            cfg.reduced(), name=cfg.name + "-100m",
+            n_layers=max(4, min(cfg.n_layers, 8)),
+            d_model=512, n_heads=8, n_kv_heads=min(cfg.n_kv_heads, 4),
+            head_dim=64, d_ff=1408 if not cfg.n_experts else 512,
+            vocab_size=32_000,
+            ssm_state=64 if cfg.ssm_state else 0,
+            rnn_width=512 if cfg.rnn_width else None)
+    raise ValueError(preset)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # [S0] int
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Server:
+    """Single-model batch server (greedy decoding) on one device.
+
+    Keeps a serving copy of ``params`` (matrices in bfloat16, exact for the
+    forward: :func:`repro_torch.models.layers.serving_copy`).  ``device``
+    must be the model's."""
+
+    def __init__(self, model: Model, params, batch_slots: int, max_seq: int,
+                 device=None):
+        self.device = resolve_device(device)
+        if self.device != model.device:
+            raise ValueError(f"server on {self.device}, model on "
+                             f"{model.device}")
+        self.model = model
+        self.params = serving_copy(params)
+        self.slots = batch_slots
+        self.max_seq = max_seq
+
+    def run(self, requests: List[Request]) -> dict:
+        """Static batch: prefill all (left-padded to one length), decode
+        until every request hits its token budget.  Times are host seconds
+        that end in a device synchronize; ``logits_finite`` says whether
+        every logit of the prefill and of each step was finite."""
+        model = self.model
+        B = len(requests)
+        if B > self.slots:
+            raise ValueError(f"{B} requests for {self.slots} slots")
+        s0 = max(len(r.prompt) for r in requests)
+        toks = np.zeros((B, s0), np.int64)
+        for i, r in enumerate(requests):
+            toks[i, s0 - len(r.prompt):] = r.prompt  # left-pad
+        tokens = torch.from_numpy(toks).to(self.device)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(self.params, {"tokens": tokens},
+                                      max_seq=self.max_seq)
+        nxt = torch.argmax(logits, dim=-1)
+        _sync(self.device)
+        prefill_s = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()   # stays on the device
+
+        max_new = max(r.max_new for r in requests)
+        t0 = time.perf_counter()
+        for t in range(max_new):
+            host = nxt.tolist()          # one device -> host copy a step
+            for i, r in enumerate(requests):
+                if t < r.max_new:
+                    r.out.append(int(host[i]))
+            logits, cache = model.decode_step(self.params, cache, nxt, s0 + t)
+            nxt = torch.argmax(logits, dim=-1)
+            finite = finite & torch.isfinite(logits).all()
+        _sync(self.device)
+        decode_s = time.perf_counter() - t0
+        for r in requests:
+            r.done = True
+        new_tokens = sum(len(r.out) for r in requests)
+        return {"prefill_s": prefill_s, "decode_s": decode_s,
+                "new_tokens": new_tokens,
+                "tok_per_s": new_tokens / max(decode_s, 1e-9),
+                "logits_finite": bool(finite)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve a batch of random prompts with random weights.")
+    ap.add_argument("--arch", default="mamba2-370m",
+                    choices=list(registry.ARCHS))
+    ap.add_argument("--preset", default="smoke",
+                    choices=["smoke", "100m", "full"])
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the plain torch versions)")
+    args = ap.parse_args(argv)
+
+    cfg = preset_config(args.arch, args.preset)
+    model = Model(cfg, device=args.device)
+    rng = np.random.default_rng(args.seed)
+    params = model.init(args.seed)
+    srv = Server(model, params, args.requests,
+                 max_seq=args.prompt_len + args.gen + 8, device=args.device)
+    del params
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(1, cfg.vocab_size, args.prompt_len),
+                    max_new=args.gen)
+            for i in range(args.requests)]
+    stats = srv.run(reqs)
+    print(json.dumps({"arch": cfg.name, "device": str(model.device),
+                      **{k: (round(v, 4) if isinstance(v, float) else v)
+                         for k, v in stats.items()}}))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,183 @@
+"""Attention for the dense family: the blockwise prefill path (through the
+``flash_attention`` kernel), GQA / sliding-window / QKV-bias variants, and
+one-token decode against a ring cache.
+
+Port of the JAX package's ``models/attention.py`` on one card: its
+``partition.wcast`` / ``constrain`` become plain casts, and of the
+sequence-sharded flash-decode only the unsharded branch exists.  The
+blockwise algorithm and its ``_pick_chunk`` live beside the kernel, as
+``kernels/flash_attention.py::flash_attention_plain`` / ``pick_chunk``.  The
+cross-attention functions (``project_kv``, ``decode_cross_attn``) wait for
+the encdec family.  The decode cache is updated in place (the reference
+returns a new one): one resident ``[L, B, W, KV, dh]`` pair instead of a
+copy per step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import (DEFAULT_CHUNK, NEG_INF,
+                                                 flash_attention_kernel)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (COMPUTE_DTYPE, ParamBuilder, Params,
+                                       apply_rope)
+
+
+def init_attention(b: ParamBuilder, cfg: ModelConfig,
+                   d_in: Optional[int] = None) -> Params:
+    d = d_in or cfg.d_model
+    p = {"wq": b.param((d, cfg.q_dim)),
+         "wk": b.param((d, cfg.kv_dim)),
+         "wv": b.param((d, cfg.kv_dim)),
+         "wo": b.param((cfg.q_dim, d))}
+    if cfg.qkv_bias:
+        p["bq"] = b.param((cfg.q_dim,), init="zeros")
+        p["bk"] = b.param((cfg.kv_dim,), init="zeros")
+        p["bv"] = b.param((cfg.kv_dim,), init="zeros")
+    return p
+
+
+def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor], rope: bool = True):
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = x @ params["wq"].to(COMPUTE_DTYPE)
+    k = x @ params["wk"].to(COMPUTE_DTYPE)
+    v = x @ params["wv"].to(COMPUTE_DTYPE)
+    if "bq" in params:
+        q = q + params["bq"].to(COMPUTE_DTYPE)
+        k = k + params["bk"].to(COMPUTE_DTYPE)
+        v = v + params["bv"].to(COMPUTE_DTYPE)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, KV, dh)
+    v = v.reshape(B, S, KV, dh)
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: Optional[int] = None,
+                        chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Block attention with static block skipping.  q: [B, Sq, H, dh];
+    k/v: [B, Sk, KV, dh] (H = KV * group).  Returns [B, Sq, H, dh].
+
+    On a CUDA tensor this is the hand-written ``flash_attention`` kernel
+    (``kernels/csrc/flash_attention.cu``, the kernel the JAX package wrote
+    in Pallas for this function); on the CPU its plain torch version, the
+    reference's jnp algorithm with ``chunk``-sized blocks."""
+    return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                  chunk=chunk)
+
+
+def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: Optional[torch.Tensor] = None, causal: bool = True,
+              window: Optional[int] = None,
+              rope: bool = True) -> torch.Tensor:
+    """Full self-attention block (projections + blockwise core + output
+    projection)."""
+    return attention_with_kv(params, x, cfg, positions=positions,
+                             causal=causal, window=window, rope=rope)[0]
+
+
+def attention_with_kv(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      positions: Optional[torch.Tensor] = None,
+                      causal: bool = True, window: Optional[int] = None,
+                      rope: bool = True):
+    """Like :func:`attention` but also returns the (post-rope) K/V for the
+    decode cache: (out [B, S, d], (k, v) each [B, S, KV, dh])."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions, rope)
+    out = blockwise_attention(q, k, v, causal=causal, window=window)
+    out = out.reshape(B, S, cfg.q_dim)
+    return out @ params["wo"].to(COMPUTE_DTYPE), (k, v)
+
+
+def pack_cache(k: torch.Tensor, v: torch.Tensor, window: int):
+    """Lay prefill K/V [B, S, KV, dh] out as a ring cache of ``window``
+    slots, ``slot = pos % window`` (the decode insert's convention): for
+    S >= window the last ``window`` tokens land rotated by S % window; for
+    S < window tokens sit at slots [0, S) with zeros above."""
+
+    def one(c):
+        S = c.shape[1]
+        if S >= window:
+            return torch.roll(c[:, S - window:], shifts=S % window, dims=1)
+        return torch.nn.functional.pad(c, (0, 0, 0, 0, 0, window - S))
+
+    return one(k), one(v)
+
+
+def cache_insert(cache: torch.Tensor, new: torch.Tensor, pos: int,
+                 ring: Optional[int] = None) -> torch.Tensor:
+    """Write one token's K or V at position ``pos`` (mod ``ring`` for a
+    sliding-window ring buffer), in place.  cache: [B, S, KV, dh]; new:
+    [B, KV, dh].  Returns ``cache``."""
+    tgt = pos % ring if ring is not None else pos
+    cache[:, tgt] = new.to(cache.dtype)
+    return cache
+
+
+def _local_decode(q, k, v, cache_len, window):
+    """Decode-attention partial over the whole cache (the reference's one
+    shard): (o, l, m), unnormalized.  q: [B, H, dh]; k/v: [B, S, KV, dh]."""
+    B, H, dh = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    qg = q.reshape(B, KV, g, dh)
+    pos = torch.arange(k.shape[1], device=q.device)
+    valid = pos < cache_len
+    if window is not None:
+        valid = valid & (pos >= cache_len - window)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.to(COMPUTE_DTYPE).float(),
+                     k.to(COMPUTE_DTYPE).float()) * (dh ** -0.5)
+    s = torch.where(valid, s, NEG_INF)
+    m = torch.amax(s, dim=-1)                            # [B, KV, g]
+    p = torch.exp(s - m[..., None])
+    p = torch.where(valid, p, 0.0)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bkgc,bckd->bkgd", p.to(COMPUTE_DTYPE).float(),
+                     v.to(COMPUTE_DTYPE).float())
+    return o, l, m
+
+
+def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cache_len: int,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over the whole cache on one card (the reference's
+    unsharded branch).  q: [B, H, dh]; k/v_cache: [B, S, KV, dh]."""
+    o, l, m = _local_decode(q, k_cache, v_cache, cache_len, window)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    B, H, dh = q.shape
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
+def decode_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                window: int):
+    """One-token self-attention against a ring cache, updated in place.
+    x: [B, d]; k/v_cache: [B, W, KV, dh]; pos: the current position.
+    Returns (out [B, d], k_cache, v_cache)."""
+    B = x.shape[0]
+    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(params, x[:, None], cfg, posb, rope=True)
+    cache_insert(k_cache, k[:, 0], pos, ring=window)
+    cache_insert(v_cache, v[:, 0], pos, ring=window)
+    eff_len = min(pos + 1, window)
+    out = decode_attention_sharded(q[:, 0], k_cache, v_cache, eff_len)
+    out = out.reshape(B, cfg.q_dim)
+    return out @ params["wo"].to(COMPUTE_DTYPE), k_cache, v_cache
+
+
+def init_decode_cache(cfg: ModelConfig, n_layers: int, batch: int,
+                      max_seq: int, window: Optional[int] = None,
+                      device=None):
+    """Zeroed stacked KV cache pair, each [L, B, W, KV, dh]."""
+    W = min(max_seq, window) if window else max_seq
+    shape = (n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim_)
+    return (torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+            torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device))

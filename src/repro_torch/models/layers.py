@@ -1,0 +1,152 @@
+"""Shared building blocks: parameter builder, norms, RoPE, MLPs.
+
+Parameters are plain nested dicts of tensors under the JAX package's key
+names (``models/layers.py`` there), so a JAX pytree carries across key for
+key (:func:`repro_torch.convert.model_params_from_arrays`).  Master weights
+are float32 (:data:`PARAM_DTYPE`); every matrix is cast to bfloat16
+(:data:`COMPUTE_DTYPE`) where it is used, as the reference's
+``partition.wcast`` does on one card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+PARAM_DTYPE = torch.float32     # master weights
+COMPUTE_DTYPE = torch.bfloat16  # activations / matmul inputs
+
+
+class ParamBuilder:
+    """Creates parameters from one seeded ``torch.Generator`` on ``device``,
+    with the reference's initializers (``normal * scale``, ``zeros``,
+    ``ones``, ``uniform(0, scale)``).  The draws differ from
+    ``jax.random``'s: to compare with the JAX package, carry its
+    parameters across instead."""
+
+    def __init__(self, seed: int, device: torch.device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def param(self, shape: Tuple[int, ...], init: str = "normal",
+              scale: float = 0.02) -> torch.Tensor:
+        kw = dict(dtype=PARAM_DTYPE, device=self.device)
+        if init == "normal":
+            return torch.randn(shape, generator=self.generator, **kw) * scale
+        if init == "zeros":
+            return torch.zeros(shape, **kw)
+        if init == "ones":
+            return torch.ones(shape, **kw)
+        if init == "uniform":  # U(0, scale), as the reference packs it
+            return torch.rand(shape, generator=self.generator, **kw) * scale
+        raise ValueError(init)
+
+
+def serving_copy(params: Params) -> Params:
+    """The tree with every floating tensor of two or more dimensions cast to
+    :data:`COMPUTE_DTYPE`, vectors kept as they are.  Exact for the forward
+    and decode paths: each matrix (embedding, head, projections, MLP, conv
+    weights) is cast to bfloat16 at every use anyway, while the vectors
+    (norm scales, ``a_log``, ``dt_bias``, ``d_skip``) are read in float32.
+    Halves the weights a server keeps resident."""
+    if isinstance(params, dict):
+        return {k: serving_copy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(serving_copy(v) for v in params)
+    if params.is_floating_point() and params.dim() >= 2:
+        return params.to(COMPUTE_DTYPE)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding.
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponent = (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim)
+    return 1.0 / (theta ** exponent)  # [head_dim // 2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: broadcastable to
+    [..., seq]."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions.float()[..., None] * freqs    # [..., seq, hd/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs.
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(b: ParamBuilder, d: int, ff: int, mlp_type: str) -> Params:
+    if mlp_type in ("swiglu", "geglu"):
+        return {"wi": b.param((d, 2 * ff), scale=0.02),
+                "wo": b.param((ff, d), scale=0.02)}
+    if mlp_type in ("squared_relu", "gelu"):
+        return {"wi": b.param((d, ff), scale=0.02),
+                "wo": b.param((ff, d), scale=0.02)}
+    raise ValueError(mlp_type)
+
+
+def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    h = x @ params["wi"].to(COMPUTE_DTYPE)
+    if mlp_type in ("swiglu", "geglu"):
+        gate, up = torch.chunk(h, 2, dim=-1)
+        if mlp_type == "swiglu":
+            act = F.silu(gate.float())
+        else:  # jax.nn.gelu defaults to the tanh approximation
+            act = F.gelu(gate.float(), approximate="tanh")
+        h = act.to(COMPUTE_DTYPE) * up
+    elif mlp_type == "squared_relu":
+        h = torch.square(torch.relu(h))
+    elif mlp_type == "gelu":
+        h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
+    return h @ params["wo"].to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Embedding.
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens].to(COMPUTE_DTYPE)   # == cast, then gather

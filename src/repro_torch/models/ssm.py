@@ -1,0 +1,181 @@
+"""Mamba2 SSD (state-space duality) blocks: the chunked prefill scan
+(through the ``ssd_scan`` kernel) and O(1)-state decode (arXiv:2405.21060).
+
+Port of the JAX package's ``models/ssm.py`` on one card.  Per head h with
+state size N and head dim P::
+
+    s_t = exp(dt_t * A_h) * s_{t-1} + dt_t * B_t x_t^T      (s in R^{P x N})
+    y_t = C_t s_t + D_h x_t
+
+Prefill uses the chunked dual form (``ssd_chunked``; its jnp algorithm and
+``segsum`` live beside the kernel, ``kernels/ssd_scan.py``); decode
+carries ``(conv_state, ssm_state)`` per layer, constant in the sequence
+length.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import COMPUTE_DTYPE, ParamBuilder, Params, rms_norm
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + exp(x)) as logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def init_mamba2(b: ParamBuilder, cfg: ModelConfig) -> Params:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    conv_dim = di + 2 * n  # conv over (x, B, C)
+    return {
+        # in_proj packs (z, x, B, C, dt)
+        "in_proj": b.param((d, 2 * di + 2 * n + h), scale=0.02),
+        "conv_w": b.param((cfg.conv_width, conv_dim), scale=0.02),
+        "conv_b": b.param((conv_dim,), init="zeros"),
+        "a_log": b.param((h,), init="uniform", scale=1.0),
+        "d_skip": b.param((h,), init="ones"),
+        "dt_bias": b.param((h,), init="zeros"),
+        "norm": b.param((di,), init="zeros"),
+        "out_proj": b.param((di, d), scale=0.02),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv.  x: [B, S, Cdim]; w: [W, Cdim].
+    ``state``: [B, W-1, Cdim] trailing context; None => zero-pad."""
+    W = w.shape[0]
+    if state is None:
+        x_pad = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        x_pad = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = sum(x_pad[:, i:i + S, :] * w[i] for i in range(W))
+    return F.silu((out + b).float()).to(x.dtype)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.  x: [B, S, H, P]; dt: [B, S, H] (softplus'd);
+    a: [H] (negative); b_in/c_in: [B, S, N] (one group, shared by every
+    head).  Returns (y [B, S, H, P], final_state [B, H, P, N] f32).
+
+    On a CUDA tensor this is the hand-written ``ssd_scan`` kernel
+    (``kernels/csrc/ssd_scan.cu``, the kernel the JAX package wrote in
+    Pallas for this function), which takes its own chunk length; on the
+    CPU its plain torch version with ``chunk``."""
+    return ssd_scan_kernel(x, dt, a, b_in, c_in, chunk, init_state)
+
+
+def ssd_reference(x, dt, a, b_in, c_in) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token recurrence oracle (tests), in float32."""
+    B, S, H, P = x.shape
+    N = b_in.shape[-1]
+    x, dt, a = x.float(), dt.float(), a.float()
+    b_in, c_in = b_in.float(), c_in.float()
+    s = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * a)[..., None, None]          # [B,H,1,1]
+        s = s * decay + torch.einsum("bhp,bn->bhpn",
+                                     x[:, t] * dt[:, t, :, None], b_in[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", s, c_in[:, t]))
+    return torch.stack(ys, dim=1), s
+
+
+def mamba2_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                 state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 return_state: bool = False):
+    """Full mamba2 block.  x: [B, S, d].  ``state``: (conv_state
+    [B, W-1, conv_dim], ssm_state [B, H, P, N]) to continue from.  Returns
+    y or (y, new_state)."""
+    B, S, d = x.shape
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x @ params["in_proj"].to(COMPUTE_DTYPE)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+
+    conv_state, ssm_state = state if state is not None else (None, None)
+    new_conv = None
+    if return_state:
+        W = cfg.conv_width
+        hist = xbc if conv_state is None else torch.cat(
+            [conv_state.to(xbc.dtype), xbc], dim=1)
+        new_conv = hist[:, -(W - 1):, :]
+        if hist.shape[1] < W - 1:  # left-pad short prefills
+            new_conv = F.pad(hist, (0, 0, W - 1 - hist.shape[1], 0))
+    xbc = _causal_conv(xbc, params["conv_w"].to(COMPUTE_DTYPE),
+                       params["conv_b"].to(COMPUTE_DTYPE), conv_state)
+
+    xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    xs = xs.reshape(B, S, h, p)      # a strided view: the kernel takes it
+    a = -torch.exp(params["a_log"].float())
+    dt = softplus(dt_raw.float() + params["dt_bias"].float())
+
+    y, final_state = ssd_chunked(xs, dt, a, b_in, c_in, cfg.ssm_chunk,
+                                 init_state=ssm_state)
+    y = y + xs.float() * params["d_skip"].float()[:, None]
+    y = y.reshape(B, S, di).to(COMPUTE_DTYPE)
+
+    # gated RMSNorm then out projection
+    y = rms_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params["norm"],
+                 cfg.norm_eps)
+    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+    if return_state:
+        return out, (new_conv.to(COMPUTE_DTYPE), final_state)
+    return out
+
+
+def mamba2_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  state: Tuple[torch.Tensor, torch.Tensor]):
+    """Single-token decode.  x: [B, d]; state as in :func:`mamba2_block`.
+    Fully recurrent: O(1) in the sequence length.  Returns
+    (out [B, d], (new_conv, new_ssm))."""
+    B, d = x.shape
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    conv_state, ssm_state = state
+    zxbcdt = x @ params["in_proj"].to(COMPUTE_DTYPE)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+
+    # conv ring update
+    hist = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
+    new_conv = hist[:, 1:, :]
+    w = params["conv_w"].to(COMPUTE_DTYPE)
+    conv_out = (torch.sum(hist * w[None], dim=1)
+                + params["conv_b"].to(COMPUTE_DTYPE))
+    xbc = F.silu(conv_out.float()).to(COMPUTE_DTYPE)
+
+    xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    xs = xs.reshape(B, h, p)
+    a = -torch.exp(params["a_log"].float())
+    dt = softplus(dt_raw.float() + params["dt_bias"].float())        # [B, h]
+
+    decay = torch.exp(dt * a)[..., None, None]                        # [B,h,1,1]
+    upd = torch.einsum("bhp,bn->bhpn", xs.float() * dt[..., None],
+                       b_in.float())
+    new_ssm = ssm_state * decay + upd
+    y = torch.einsum("bhpn,bn->bhp", new_ssm, c_in.float())
+    y = y + xs.float() * params["d_skip"].float()[:, None]
+    y = y.reshape(B, di).to(COMPUTE_DTYPE)
+    y = rms_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params["norm"],
+                 cfg.norm_eps)
+    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+    return out, (new_conv, new_ssm)
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, device=None):
+    """Zeroed decode state: (conv [B, W-1, conv_dim] bf16,
+    ssm [B, H, P, N] f32)."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    conv = torch.zeros((batch, cfg.conv_width - 1, conv_dim),
+                       dtype=COMPUTE_DTYPE, device=device)
+    ssm = torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                       cfg.ssm_state), dtype=torch.float32, device=device)
+    return conv, ssm

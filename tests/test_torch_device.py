@@ -11,7 +11,10 @@ torch.set_num_threads(1)
 
 from repro_torch.core import (bounds, machines, online, scheduling,  # noqa: E402
                               single_task, tasks)
-from repro_torch.kernels import build, dvfs_opt, ops, ref  # noqa: E402
+from repro_torch.kernels import (build, dvfs_opt, flash_attention,  # noqa: E402
+                                 ops, ref, ssd_scan)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 
 
 @pytest.fixture
@@ -53,6 +56,15 @@ ENTRY_POINTS = {
     "dvfs_solve_matrix": lambda ts, a: ops.dvfs_solve_matrix(_mat()),
     "theoretical_bound": lambda ts, a: bounds.theoretical_bound(ts),
     "dvfs_solve_ref": lambda ts, a: ref.dvfs_solve_ref(_mat()),
+    "flash_attention": lambda ts, a: ops.flash_attention(
+        *(np.zeros((1, 2, 8, 16), np.float32) for _ in range(3))),
+    "ssd_scan": lambda ts, a: ops.ssd_scan(
+        np.zeros((1, 8, 2, 4), np.float32), np.ones((1, 8, 2), np.float32),
+        -np.ones(2, np.float32), *(np.zeros((1, 8, 3), np.float32),) * 2),
+    "Model": lambda ts, a: Model(serve.preset_config("mamba2-370m", "smoke")),
+    "Server": lambda ts, a: serve.Server(
+        Model(serve.preset_config("mamba2-370m", "smoke"), device="cpu"),
+        {}, 1, 16),
 }
 
 
@@ -102,6 +114,42 @@ def test_cuda_wrapper_refuses_host_data(bad):
     assert dvfs_opt.dvfs_solve_cuda.launches == before
 
 
+def _attention_operands():
+    return [torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+            for _ in range(3)]
+
+
+def _ssd_operands():
+    return (torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16),
+            torch.ones((1, 8, 2)), -torch.ones(2),
+            torch.zeros((1, 8, 128), dtype=torch.bfloat16),
+            torch.zeros((1, 8, 128), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "ssd_scan"])
+def test_new_cuda_wrappers_refuse_host_tensors(which):
+    if which == "flash_attention":
+        fn = flash_attention.flash_attention_cuda
+        call = lambda: fn(*_attention_operands(), causal=True)  # noqa: E731
+    else:
+        fn = ssd_scan.ssd_scan_cuda
+        call = lambda: fn(*_ssd_operands())  # noqa: E731
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
+    assert fn.launches == before
+
+
+def test_dispatchers_refuse_other_devices():
+    q = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no flash_attention"):
+        flash_attention.flash_attention_kernel(q, q, q, causal=True)
+    x = torch.zeros((1, 8, 2, 16), device="meta")
+    b = torch.zeros((1, 8, 4), device="meta")
+    with pytest.raises(ValueError, match="no ssd_scan"):
+        ssd_scan.ssd_scan_kernel(x, x[..., 0], x[0, 0, :, 0], b, b, 8)
+
+
 def test_kernel_tags_name_the_device():
     assert ops.kernel_tag(torch.device("cpu")) == "k64x64@cpu"
     assert ops.kernel_tag(torch.device("cuda")) == "k64x64@cuda"
@@ -118,17 +166,22 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         build.nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.load("dvfs_opt")
+    for name in build.KERNELS:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load(name)
     assert not (tmp_path / "kernels").exists()
 
 
 def test_build_paths_follow_the_source():
-    assert build.KERNELS == ("dvfs_opt",)
-    path = build.library_path("dvfs_opt")
-    assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("libdvfs_opt-") and path.suffix == ".so"
-    assert (build.CSRC / "dvfs_opt.cu").is_file()
-    assert "-fmad=false" in build.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert "--use_fast_math" not in build.NVCC_FLAGS
+    assert build.KERNELS == ("dvfs_opt", "flash_attention", "ssd_scan")
+    for name in build.KERNELS:
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert (build.CSRC / f"{name}.cu").is_file()
+    for name in build.KERNELS:
+        flags = build.flags(name)
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert "--use_fast_math" not in flags
+        # Only the bit-equal scheduler kernel gives up FMA contraction.
+        assert ("-fmad=false" in flags) == (name == "dvfs_opt")

@@ -1,0 +1,151 @@
+"""The ``flash_attention`` kernel's plain torch version against the JAX
+package: its Pallas kernel (interpret mode, through ``repro.kernels.ops``,
+which pads dh to 128), its dense oracle ``ref.attention_ref`` and the
+model's ``blockwise_attention`` in the model layout.
+
+Bars: ``tests/test_kernels.py``'s, atol 2e-3 in float32 and 3e-2 in
+bfloat16 (measured: <= 2e-6 and <= 1.6e-2, one bf16 ulp of outputs near
+2-4).  Against ``blockwise_attention`` in bfloat16, the same algorithm with
+the same roundings: atol 1e-2 (measured <= 3.9e-3, one bf16 ulp of
+outputs near 2-4: the rounding of the output may land either way after
+float32 sums taken in another order)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro.models import attention as rattn  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-3),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _inputs(seed, B, H, KV, S, dh, layout="jax"):
+    """q, k, v as float32 numpy from a seeded generator, in the JAX layout
+    [B, heads, S, dh] or the model layout [B, S, heads, dh]."""
+    rng = np.random.default_rng(seed)
+    shapes = [(B, H, S, dh), (B, KV, S, dh), (B, KV, S, dh)]
+    if layout == "model":
+        shapes = [(b, s, h, d) for b, h, s, d in shapes]
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("B,H,KV,S,dh", [
+    (1, 2, 2, 128, 64),
+    (2, 4, 2, 256, 64),
+    (1, 8, 8, 384, 128),
+    (2, 4, 1, 256, 80),     # MQA + a head dim the Pallas wrapper pads
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_matches_pallas_and_oracles(B, H, KV, S, dh, dtype):
+    arrays = _inputs(S + dh, B, H, KV, S, dh)
+    (jq, jk, jv), (q, k, v) = _both(arrays, dtype)
+    tol = DTYPES[dtype][2]
+    got = _f32(ops.flash_attention(q, k, v, causal=True, device="cpu"))
+    pallas = _f32(rops.flash_attention(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(got, pallas, atol=tol)
+    np.testing.assert_allclose(got, _f32(rref.attention_ref(jq, jk, jv)),
+                               atol=tol)
+    np.testing.assert_allclose(got, _f32(ref.attention_ref(q, k, v)),
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("chunk", [64, 1024])
+def test_ragged_length_head_dim_80_gqa(dtype, chunk):
+    """S = 200 is no multiple of the Pallas kernel's 128 (it asserts one);
+    the plain version pads and masks, the CUDA kernel masks the edge."""
+    B, H, KV, S, dh = 1, 4, 2, 200, 80
+    arrays = _inputs(7, B, H, KV, S, dh)
+    (jq, jk, jv), (q, k, v) = _both(arrays, dtype)
+    got = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True,
+                                   chunk=chunk).transpose(1, 2)
+    np.testing.assert_allclose(_f32(got),
+                               _f32(rref.attention_ref(jq, jk, jv)),
+                               atol=DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("window", [64, 128])
+def test_sliding_window(window):
+    B, H, KV, S, dh = 1, 4, 2, 256, 64
+    (jq, jk, jv), (q, k, v) = _both(_inputs(window, B, H, KV, S, dh), "f32")
+    got = _f32(ops.flash_attention(q, k, v, causal=True, window=window,
+                                   device="cpu"))
+    np.testing.assert_allclose(
+        got, _f32(rops.flash_attention(jq, jk, jv, causal=True,
+                                       window=window)), atol=2e-3)
+    np.testing.assert_allclose(
+        got, _f32(ref.attention_ref(q, k, v, causal=True, window=window)),
+        atol=2e-3)
+
+
+def test_noncausal():
+    B, H, KV, S, dh = 2, 2, 2, 128, 64
+    (jq, jk, jv), (q, k, v) = _both(_inputs(3, B, H, KV, S, dh), "f32")
+    got = _f32(ops.flash_attention(q, k, v, causal=False, device="cpu"))
+    np.testing.assert_allclose(
+        got, _f32(rops.flash_attention(jq, jk, jv, causal=False)), atol=2e-3)
+    np.testing.assert_allclose(
+        got, _f32(rref.attention_ref(jq, jk, jv, causal=False)), atol=2e-3)
+
+
+@pytest.mark.parametrize("S,chunk,window,causal", [
+    (256, 64, None, True),
+    (256, 64, 96, True),
+    (211, 64, None, True),          # no divisor in (32, 64]: padded keys
+    (211, 64, 50, True),
+    (130, 1024, None, False),
+    (200, 128, 64, True),           # chunk 100, window across chunks
+])
+def test_model_layout_matches_blockwise_attention(S, chunk, window, causal):
+    B, H, KV, dh = 2, 4, 2, 80
+    arrays = _inputs(S, B, H, KV, S, dh, layout="model")
+    (jq, jk, jv), (q, k, v) = _both(arrays, "bf16")
+    want = rattn.blockwise_attention(jq, jk, jv, causal=causal, window=window,
+                                     chunk=chunk)
+    got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                    chunk=chunk)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, dh)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-2)
+
+
+def test_pick_chunk_matches_reference():
+    for s in (1, 64, 100, 200, 211, 1024, 2048, 2049, 4096, 5000):
+        for chunk in (64, 128, 1024):
+            assert fa.pick_chunk(s, chunk) == rattn._pick_chunk(s, chunk)
+
+
+def test_cpu_dispatch_never_builds(monkeypatch):
+    from repro_torch.kernels import build
+
+    def no_build(name):
+        raise AssertionError("the CPU path must not build a CUDA kernel")
+
+    monkeypatch.setattr(build, "load", no_build)
+    before = fa.flash_attention_cuda.launches
+    q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 1, 32, 16,
+                                                   layout="model"))
+    out = fa.flash_attention_kernel(q, k, v, causal=True)
+    assert out.shape == q.shape
+    assert fa.flash_attention_cuda.launches == before

@@ -21,6 +21,10 @@ PROBE = """
 import json, sys
 import repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch.convert
 import repro_torch.kernels.ref, repro_torch.kernels.build
+import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan
+import repro_torch.configs, repro_torch.models.config, repro_torch.models.layers
+import repro_torch.models.attention, repro_torch.models.ssm
+import repro_torch.models.model, repro_torch.launch.serve
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
 print(json.dumps(mods))
@@ -53,6 +57,13 @@ def test_port_mirrors_the_reference_tree():
                 "core/faults.py", "core/bounds.py", "core/scheduling.py",
                 "core/online.py", "core/cluster.py", "core/tasks.py",
                 "kernels/layout.py", "kernels/dvfs_opt.py", "kernels/ops.py",
-                "kernels/ref.py"):
+                "kernels/ref.py", "kernels/flash_attention.py",
+                "kernels/ssd_scan.py", "configs/registry.py",
+                "models/config.py", "models/layers.py",
+                "models/attention.py", "models/ssm.py", "models/model.py",
+                "launch/serve.py"):
         assert (ROOT / "src" / "repro" / rel).exists()
         assert (PORT / rel).exists()
+    for cfg in (ROOT / "src" / "repro" / "configs").glob("*.py"):
+        if cfg.name != "__init__.py":
+            assert (PORT / "configs" / cfg.name).exists(), cfg.name
