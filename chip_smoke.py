@@ -22,9 +22,11 @@ without the final result line):
 5. attention kernel — ``flash_attention`` (CUDA) against its plain torch
    version in bf16 at h2o-danube-1.8b's serving shape (B 8, S 2048, H 32,
    KV 8, dh 80, causal, window 4096), at B 1, S 8192, where the window
-   skips blocks, and on an input built to show a fault at the mask's edges;
-   timed beside the plain version, ``scaled_dot_product_attention`` with
-   the same mask (a yardstick the port never calls) and the bound;
+   skips blocks, and on an input built to show a fault at the mask's edges,
+   at dh 80 and again at dh 64 and dh 128 (each head dim is its own
+   instantiation of the kernel); timed beside the plain version,
+   ``scaled_dot_product_attention`` with the same mask (a yardstick the
+   port never calls) and the bound;
 6. ssd kernel — ``ssd_scan`` (CUDA) against its plain version at
    mamba2-370m's serving shape (B 8, S 2048, H 32, P 64, N 128) with dt and
    a from Mamba2's own ranges, y and the final state, and a 256-token
@@ -37,7 +39,9 @@ without the final result line):
    model's prefill through the kernels against the same prefill through
    the plain versions (each layer's call on its own inputs, then the logits
    and the whole decode cache), and prefill against decode at full width on
-   both paths.
+   both paths; one prefill and a window of decode steps under
+   ``torch.profiler``, the prefill's device time split between the
+   family's kernel, the matmuls and the rest.
 
 Each kernel check compares the normalised error, max |got - want| /
 (|want| + rms(want)), with its bar, and shows that the bar would catch the
@@ -94,6 +98,11 @@ ATTN_SHAPES = (("serve", (8, 2048, 32, 8, 80, 4096)),
 # window's or the diagonal's edge then moves many rows by much of their size.
 ATTN_EDGE = (2, 1000, 32, 8, 80, 100)
 ATTN_EDGE_Q_SCALE = 4.0
+# The same kind of input at the other head dims the kernel is compiled for:
+# dh 64 with whisper-base's 8 heads over 8 kv heads (no grouping), and dh
+# 128 (qwen2, nemotron, qwen3-moe, moonshot) with 4 query heads a kv head.
+ATTN_HEAD_DIMS = (("dh64", (2, 1000, 8, 8, 64, 100)),
+                  ("dh128", (2, 1000, 16, 4, 128, 100)))
 SSD_SHAPE = (8, 2048, 32, 64, 128)
 # Mamba2's initialisation ranges (arXiv:2405.21060 and its reference code):
 # softplus(dt_bias) log-uniform in [1e-3, 0.1], A = -a uniform in [1, 16].
@@ -103,23 +112,24 @@ SSD_SHAPE = (8, 2048, 32, 64, 128)
 SSD_DT_RANGE, SSD_A_RANGE = (1e-3, 0.1), (1.0, 16.0)
 SSD_INIT_LEN = 256   # tokens of the segment that starts from a state
 # Kernel against plain version, bf16: the normalised error (norm_err).  The
-# two versions tile the sums differently (64-key tiles against 1,024, SSD
-# chunks of 64 against 256), so the same bf16 roundings land on other
-# values; where an output is a cancelling sum its error shows against the
-# RMS floor.  Readings on an H100 (chip_smoke.py, one run): attention 1.6e-2
-# (serve), 1.7e-2 (long), 6.6e-3 (edge), 1.2e-2 at the worst danube layer;
-# SSD 1.4e-2 (y), 1.2e-2 (final state), 2.7e-2 at the worst mamba2 layer.
-# Each bar is about three times the largest reading, and the plain
-# renderings of the faults it guards against read 0.95-5 against it.
+# two versions tile the sums differently (128-key tiles and exp2 against
+# 1,024-key blocks and exp, SSD chunks of 64 against 256), so the same bf16
+# roundings land on other values; where an output is a cancelling sum its
+# error shows against the RMS floor.  Readings on an H100 at 700 W
+# (chip_smoke.py, one run): attention 1.6e-2 (serve), 1.4e-2 (long), 6.6e-3
+# (edge), 5.9e-3 (dh 64 and dh 128), 1.1e-2 at the worst danube layer; SSD
+# 1.7e-2 (y), 1.2e-2 (final state), 2.7e-2 at the worst mamba2 layer.  Each
+# bar is three to four times the largest reading, and the plain renderings
+# of the faults it guards against read 0.68-31 against it.
 ATTN_BAR, SSD_BAR = 6e-2, 8e-2
 # The model's whole prefill through the kernels against the same prefill
 # through the plain versions, same weights and tokens: max |difference| over
 # max |plain| of the logits and of every tensor of the decode cache (each
 # layer's kernel call on its own inputs is held to ATTN_BAR or SSD_BAR; here
 # the layers' differences compound through the depth).  Readings on an H100
-# (chip_smoke.py, one run): 4.0e-2 (danube logits), 3.9e-2 (its k cache),
-# 2.0-2.2e-2 (mamba2), the order of the plain path's own prefill-against-
-# decode gap below; the bar is 2.5 times the largest.
+# (chip_smoke.py, one run): 4.1e-2 (danube logits), 3.3e-2 (its k and v
+# cache), 1.7-2.3e-2 (mamba2), the order of the plain path's own prefill-
+# against-decode gap below; the bar is 2.5 times the largest.
 PLAIN_PATH_BAR = 1e-1
 # Prefill against decode at full width: max |decode - prefill| logits over
 # max |prefill| logits.  The two sides round bf16 activations at different
@@ -221,20 +231,25 @@ def fuzz_matrix(np, dvfs, tasks, seed: int, n: int):
 
 
 def event_ms(torch, fn, reps: int) -> float:
-    """Median over ``reps`` single calls, each bracketed by CUDA events,
-    after two warm-up calls."""
+    """Device time of one call: ``reps`` calls back to back between two
+    CUDA events, over the count; the median of three such runs, after
+    two warm-up calls.  Back to back, the host's work to launch a call (a
+    wrapper's checks, the ctypes call, a kernel's set-up) overlaps the
+    device's work on the one before, so it stays out of the time wherever
+    the device, not the host, is the slower of the two."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
 
@@ -532,7 +547,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         **attn["serve"], **serve["flash_attention"],
-        "long_8192": attn["long"], "edge": attn["edge"]}, {
+        "long_8192": attn["long"], "edge": attn["edge"],
+        **{key: attn[key] for key, _ in ATTN_HEAD_DIMS}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
@@ -617,18 +633,21 @@ def attention_phase(checks, torch, dev, seed: int) -> dict:
               flush=True)
         del q, k, v
 
-    B, S, H, KV, dh, window = ATTN_EDGE
-    q, k, v = inputs(B, S, H, KV, dh, ATTN_EDGE_Q_SCALE)
-    err, abs_err, faults = compare("edge", q, k, v, window)
-    out["edge"] = {"max_abs_err": abs_err, "norm_err": err,
-                   "fault_norm_errs": faults,
-                   "shape": [B, S, H, KV, dh, "causal", window,
-                             f"q x{ATTN_EDGE_Q_SCALE}"]}
-    print(f"phase attention kernel edge: B {B} S {S} H {H} KV {KV} dh {dh} "
-          f"causal window {window}, q x{ATTN_EDGE_Q_SCALE}: norm err "
-          f"{err:.3e}, max abs err {abs_err:.3e}; {faults_text(faults)}",
-          flush=True)
-    del q, k, v
+    for key, (B, S, H, KV, dh, window) in (("edge", ATTN_EDGE),
+                                           *ATTN_HEAD_DIMS):
+        q, k, v = inputs(B, S, H, KV, dh, ATTN_EDGE_Q_SCALE)
+        err, abs_err, faults = compare(key, q, k, v, window)
+        k_ms = event_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True, window=window), 20)
+        out[key] = {"max_abs_err": abs_err, "norm_err": err, "ms": k_ms,
+                    "fault_norm_errs": faults,
+                    "shape": [B, S, H, KV, dh, "causal", window,
+                              f"q x{ATTN_EDGE_Q_SCALE}"]}
+        print(f"phase attention kernel {key}: B {B} S {S} H {H} KV {KV} dh "
+              f"{dh} causal window {window}, q x{ATTN_EDGE_Q_SCALE}: norm "
+              f"err {err:.3e}, max abs err {abs_err:.3e}; kernel "
+              f"{k_ms:.4f} ms; {faults_text(faults)}", flush=True)
+        del q, k, v
     torch.cuda.empty_cache()
     return out
 
@@ -876,11 +895,20 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
                   f"{CONSIST_BAR}, finite {finite} (plain path {p_finite})")
     del k_cache, p_cache
 
-    # Where decode time goes: DECODE_PROFILE steps at the serving batch
-    # under torch.profiler (device activity): busy time against the wall.
+    # Where prefill and decode time go, under torch.profiler (device
+    # activity): one prefill of the serving batch, its device time split
+    # between the family's kernel, the matmuls and the rest; then
+    # DECODE_PROFILE steps, busy time against the wall.
     from torch.profiler import ProfilerActivity, profile
-    logits, cache = model.prefill(srv.params, {"tokens": torch.from_numpy(
-        prompts).to(dev)}, max_seq=SERVE_PROMPT + SERVE_GEN + 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        logits, cache = model.prefill(srv.params, {"tokens": torch.from_numpy(
+            prompts).to(dev)}, max_seq=SERVE_PROMPT + SERVE_GEN + 8)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t
+    split, p_top = device_split(prof.key_averages(), KERNEL_SYMBOLS[kernel])
+    p_busy = sum(ms for ms, _ in split.values())
     nxt = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -914,6 +942,12 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
           f"{max(errs):.4e}, per step {[f'{e:.3e}' for e in errs]}), plain "
           f"path {p_rel:.3e} (per step {[f'{e:.3e}' for e in p_errs]})",
           flush=True)
+    print(f"phase serve {arch} prefill profile: {SERVE_REQUESTS} x "
+          f"{SERVE_PROMPT} tokens, wall {p_wall * 1e3:.3f} ms, device busy "
+          f"{p_busy:.3f} ms; "
+          + "; ".join(f"{name} {ms:.3f} ms x{n} ({ms / p_busy:.1%})"
+                      for name, (ms, n) in split.items())
+          + f"; top of the rest: {p_top}", flush=True)
     print(f"phase serve {arch} decode profile: {DECODE_PROFILE} steps at "
           f"batch {SERVE_REQUESTS}, wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / 1e3 / wall:.4f}, "
@@ -925,7 +959,39 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
             "layer_norm_err_worst": layer_errs[worst],
             "model_vs_plain_rel_errs": vs_plain,
             "model_vs_plain_norm_errs": vs_plain_norm,
-            "prefill_vs_decode": rel, "prefill_vs_decode_plain": p_rel}
+            "prefill_vs_decode": rel, "prefill_vs_decode_plain": p_rel,
+            "prefill_s": stats["prefill_s"],
+            "prefill_profile_ms": {name: ms for name, (ms, _) in
+                                   split.items()}}
+
+
+# Kernel names as the profiler shows them, per family kernel.
+KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "ssd_scan": "ssd_fwd"}
+# Device kernels of a matrix product (cuBLAS and CUTLASS names).
+MATMUL_SYMBOLS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def device_split(events, symbol: str) -> tuple:
+    """Device time (ms) and launches of a profile by group: the kernel whose
+    name holds ``symbol``, the matmuls, everything else; and the five
+    largest entries of everything else."""
+    split = {"kernel": [0.0, 0], "matmuls": [0.0, 0], "rest": [0.0, 0]}
+    rest = []
+    for e in events:
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        name = e.key.lower()
+        group = ("kernel" if symbol in e.key else
+                 "matmuls" if any(m in name for m in MATMUL_SYMBOLS) else
+                 "rest")
+        split[group][0] += ms
+        split[group][1] += e.count
+        if group == "rest":
+            rest.append((ms, e.count, e.key[:48]))
+    top = "; ".join(f"{key} {ms:.3f} ms x{n}"
+                    for ms, n, key in sorted(rest, reverse=True)[:5])
+    return {name: tuple(v) for name, v in split.items()}, top
 
 
 def _tensors(tree):

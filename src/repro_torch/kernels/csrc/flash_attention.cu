@@ -8,39 +8,55 @@
 // wrapper is flash_attention_cuda in the same module.
 //
 // Input:  q [B, Sq, H, dh], k/v [B, Sk, KV, dh] bf16, each with its own
-//         (batch, seq, head) element strides and a unit dh stride; query
-//         head h reads kv head h / (H / KV).
+//         (batch, seq, head) element strides, a unit dh stride and 16-byte
+//         aligned rows; query head h reads kv head h / (H / KV).
 // Output: o with q's shape and strides, bf16.
-// dh is 64, 80 or 128, taken natively: dh / 16 k-steps of mma.sync
-// m16n8k16, no padding and no rescaling of q.
+// dh is 64, 80 or 128, each its own instantiation, taken natively.
 //
 // What bounds it on an H100: operations.  At the h2o-danube-1.8b prefill
 // shape (B 8, S 2048, H 32, KV 8, dh 80, causal) the live score entries
 // need 4 * B * H * dh * 2.1M = 172 GFLOP, 0.17 ms at the bf16 tensor-core
-// peak, against 210 MB of q/k/v/o, 0.06 ms at the memory rate.
+// peak, against 210 MB of q/k/v/o, 0.06 ms at the memory rate.  Only
+// wgmma reaches that peak; every cycle the tensor cores wait on a load, a
+// barrier or the softmax is lost.
 //
-// What the design does about it: both products run on the tensor cores
-// (mma.sync bf16 -> f32), and a block never touches a key block that the
-// causal bound or the window excludes: the kv loop runs from the block
-// holding key q_lo - window + 1 to the block holding key q_hi - 1, so a
-// skipped block costs nothing.  One block of 4 warps per (64 query rows,
-// head, batch); each warp owns 16 query rows, keeps its Q fragments, the
-// running max m, the partial sums l and the f32 accumulator in registers
-// across the kv loop (the Pallas kernel kept m, l, acc in VMEM scratch
-// across its sequential kv grid axis; CUDA blocks run in no order, so the
-// loop lives inside the block).  Each kv step stages a 64-row K tile and
-// the transposed V tile in shared memory (rows padded by 8 elements, so
-// fragment loads hit 32 distinct banks).  The ragged edge is masked here:
-// keys past Sk are zero-filled and masked, query rows past Sq not stored.
-// Loads are not overlapped with the products and there is no wgmma or TMA:
-// that is the redesign's work.
+// What the design does about it:
+// - Both products run as wgmma: S = Q K^T with Q and the K tile read from
+//   shared memory (both K-major), and O += P V with P from registers (the S
+//   accumulator rounded to bf16 is already the A-fragment layout) and the V
+//   tile [keys, dh] read as an MN-major B operand, so nothing is transposed.
+// - One block per (128 query rows, head, batch): two consumer warpgroups of
+//   64 rows each and one producer warp (9 warps: ptxas caps a thread at 168
+//   registers, enough for S, O and P at dh 128 without spills).  The
+//   producer's one thread loads Q once and keeps 128-key K/V tiles in
+//   flight with TMA (cp.async.bulk.tensor, 4-D maps over the strided
+//   tensors) into a three-stage ring guarded by full/empty mbarriers, so
+//   the next tiles arrive while the current one is multiplied.  A tile is
+//   stored as dh/16 boxes of [128 rows, 16 columns] with the 32-byte
+//   swizzle: every head dim is a whole number of them (dh 80 rows are 160
+//   bytes, wider than a 128-byte swizzle box), and wgmma reads them without
+//   bank conflicts.  TMA fills rows past Sq or Sk with zeros.  (Blocks of
+//   two query heads of one kv group x 64 rows, which share each K/V tile,
+//   measured no faster on the card.  The group's K/V stays in L2.)
+// - The softmax runs in base 2 (scale * log2(e) folded into one FMA, then
+//   ex2.approx), and the mask is applied only on tiles that the causal
+//   diagonal, the window's lower edge or the ragged end Sk cut, classified
+//   per warpgroup in integer arithmetic; a warpgroup skips a tile that holds
+//   none of its live keys.  The kv loop runs only over the tiles between
+//   the causal and window bounds of the block.
+// - Causal blocks carry from 1 to Sk/128 tiles; the heaviest (last) query
+//   blocks are launched first.
+//
+// The tensor maps come from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so the library links no more than cudart.
 //
 // Semantics follow the model's blockwise_attention: scores scaled by the
 // real dh^-0.5 in f32, masked entries set to -1e30 (a row masked so far
-// keeps m = -1e30 and its weight is wiped by the first real maximum), p
+// keeps m = -1e30; what it summed is wiped by the first real maximum), p
 // rounded to bf16 for the PV product while l sums the f32 p, and the
 // output divided by max(l, 1e-30).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -48,34 +64,126 @@
 
 namespace {
 
-constexpr int kBq = 64;       // query rows of a block (16 per warp)
-constexpr int kBk = 64;       // key rows of a kv tile
-constexpr int kThreads = 128;
+constexpr int kBq = 128;        // query rows of a block (64 per warpgroup)
+constexpr int kBk = 128;        // key rows of a K/V tile
+constexpr int kBox = 16;        // columns of one TMA box (32 bytes)
+constexpr int kStages = 3;      // K/V ring depth
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + the producer warp
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
-  int B, H, KV, Sq, Sk;
-  int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
-      o_sh;
+  int H, KV, Sq, Sk;
+  int64_t o_sb, o_ss, o_sh;
   int causal, window;  // window 0: none
-  float scale;
+  float scale_log2;    // dh^-0.5 * log2(e)
 };
 
-// D = A B + D for one 16x8x16 tile: A row-major 16x16 bf16 (4 regs), B
-// column-major 16x8 bf16 (2 regs), D 16x8 f32 (4 regs).
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
+// Shared-memory layout of one block, in bytes from a 1024-aligned base.
+template <int DH>
+struct Smem {
+  static constexpr int kQ = 0;                            // [DH/16][kBq][16]
+  static constexpr int kTile = kBk * DH * 2;              // one K or V tile
+  static constexpr int kK = kQ + kBq * DH * 2;            // [kStages] tiles
+  static constexpr int kV = kK + kStages * kTile;         // [kStages] tiles
+  static constexpr int kBar = kV + kStages * kTile;       // mbarriers
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// ---- PTX helpers ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One [kBox cols, rows, 1, 1] box of a 4-D tensor map into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout 3 = 32-byte swizzle.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(sbo & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(3) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma (it sees the asm as finished at issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats rounded to bf16 and packed, the first in the low half.
@@ -84,146 +192,306 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128] with A and B in shared memory
+// (descriptors da, db), both K-major; accumulate 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64] with A in registers (the
+// m16n8k16 A fragment, one 16-row slab per warp) and B in shared memory,
+// MN-major (the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 80] += A[64 x 16] B[16 x 80] with A in registers (the
+// m16n8k16 A fragment, one 16-row slab per warp) and B in shared memory,
+// MN-major (the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n80_tb(float (&d)[40],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128] with A in registers (the
+// m16n8k16 A fragment, one 16-row slab per warp) and B in shared memory,
+// MN-major (the transpose flag set).
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
-  constexpr int kKs = DH / 16;        // k-steps of QK^T
-  constexpr int kDt = DH / 8;         // n8 tiles of the output
-  constexpr int kNt = kBk / 8;        // n8 tiles of the scores
-  constexpr int kKStride = DH + 8;    // K tile row stride (elements)
-  constexpr int kVStride = kBk + 8;   // V^T tile row stride
-  __shared__ __align__(16) bf16 ks[kBk * kKStride];
-  __shared__ __align__(16) bf16 vt[DH * kVStride];
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 64) wgmma_rs_n64_tb(d, a, db);
+  if constexpr (DH == 80) wgmma_rs_n80_tb(d, a, db);
+  if constexpr (DH == 128) wgmma_rs_n128_tb(d, a, db);
+}
+
+// ---- the kernel -----------------------------------------------------------
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Smem<DH>;
+  constexpr int kChunks = DH / kBox;     // k-steps of S = Q K^T
+  constexpr int kBoxBytes = kBk * kBox * 2;  // one [128, 16] box
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * kStages;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q_lo = blockIdx.x * kBq;
-  const int q_hi = min(q_lo + kBq, p.Sq);  // exclusive
-  const int r0 = q_lo + warp * 16 + g;     // this thread's two query rows
-  const int r1 = r0 + 8;
-
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
-
-  // Q fragments for every k-step, zero past Sq.
-  uint32_t qf[kKs][4];
-#pragma unroll
-  for (int kk = 0; kk < kKs; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < p.Sq ? ld32(qb + r0 * p.q_ss + c) : 0u;
-    qf[kk][1] = r1 < p.Sq ? ld32(qb + r1 * p.q_ss + c) : 0u;
-    qf[kk][2] = r0 < p.Sq ? ld32(qb + r0 * p.q_ss + c + 8) : 0u;
-    qf[kk][3] = r1 < p.Sq ? ld32(qb + r1 * p.q_ss + c + 8) : 0u;
-  }
-
-  float acc[kDt][4];
-#pragma unroll
-  for (int n = 0; n < kDt; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // running row max (whole row)
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-
-  // Key range this block needs: causal keys <= q_hi - 1, window keys
-  // >= q_lo - window + 1; whole tiles outside it are never loaded.
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * kBq;  // heaviest first
+  const int q_hi = min(q_lo + kBq, p.Sq);               // exclusive
+  // Key range of the block: causal keys <= q_hi - 1, window keys >=
+  // q_lo - window + 1; whole tiles outside it are never loaded.
   int kv_end = p.Sk;
   if (p.causal) kv_end = min(kv_end, q_hi);
-  int kv_begin = 0;
-  if (p.window > 0) kv_begin = max(0, q_lo - p.window + 1);
+  const int kv_begin = p.window > 0 ? max(0, q_lo - p.window + 1) : 0;
   const int kb_begin = kv_begin / kBk;
   const int kb_end = (kv_end + kBk - 1) / kBk;
 
-  for (int kblk = kb_begin; kblk < kb_end; ++kblk) {
-    const int k_lo = kblk * kBk;
-    __syncthreads();  // the previous tile is consumed
-    constexpr int kChunks = DH / 8;  // 16-byte chunks of a row
-    for (int i = threadIdx.x; i < kBk * kChunks; i += kThreads) {
-      const int row = i / kChunks, ch = i - row * kChunks;
-      const int key = k_lo + row;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < p.Sk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + key * p.k_ss + ch * 8);
-        vv4 = *reinterpret_cast<const uint4*>(vb + key * p.v_ss + ch * 8);
-      }
-      *reinterpret_cast<uint4*>(&ks[row * kKStride + ch * 8]) = kv4;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(ch * 8 + e) * kVStride + row] = ve[e];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kNt][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKs; ++kk) {
-        const bf16* kr = &ks[(j * 8 + g) * kKStride + kk * 16 + 2 * t];
-        const uint32_t bfr[2] = {ld32(kr), ld32(kr + 8)};
-        mma_bf16(s[j], qf[kk], bfr);
-      }
-    }
-
-    // Scale, mask, and the new row maxima.
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = k_lo + j * 8 + 2 * t + (e & 1);
-        bool ok = col < p.Sk;
-        if (p.causal) ok = ok && row >= col;
-        if (p.window > 0) ok = ok && row - col < p.window;
-        const float x = ok ? s[j][e] * p.scale : kNegInf;
-        s[j][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+  if (warp == kConsumerWarps) {
+    // ---- producer: Q once, then the K/V ring.
+    if (lane == 0) {
+      mbar_expect_tx(q_full, kBq * DH * 2);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load(sq + c * kBq * kBox * 2, &tq, q_full, c * kBox, q_lo, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = kb_begin; kb < kb_end; ++kb) {
+        const uint32_t full = full0 + 8 * stage;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full, 2 * L::kTile);
+        const uint32_t kt = sk + stage * L::kTile, vt = sv + stage * L::kTile;
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(kt + c * kBoxBytes, &tk, full, c * kBox, kb * kBk, kvh, b);
+          tma_load(vt + c * kBoxBytes, &tv, full, c * kBox, kb * kBk, kvh, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int n = 0; n < kDt; ++n) {
-      acc[n][0] *= c0; acc[n][1] *= c0;
-      acc[n][2] *= c1; acc[n][3] *= c1;
-    }
+    return;
+  }
 
-    // P = exp(S - m): f32 into the row sums, bf16 into A fragments (the
-    // accumulator layout of two neighbouring n8 tiles is the A layout of
-    // one k16 step).
-    uint32_t pf[kBk / 16][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      const float e0 = expf(s[j][0] - m0), e1 = expf(s[j][1] - m0);
-      const float e2 = expf(s[j][2] - m1), e3 = expf(s[j][3] - m1);
-      l0 += e0 + e1;
-      l1 += e2 + e3;
-      pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(e0, e1);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(e2, e3);
-    }
+  // ---- consumers: warpgroup wg owns query rows q_lo + 64 wg ... + 63.
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq_lo = q_lo + 64 * wg;
+  const int wq_hi = min(wq_lo + 64, p.Sq);  // exclusive; may be <= wq_lo
+  const int r0 = wq_lo + wl * 16 + g;       // this thread's two query rows
+  const int r1 = r0 + 8;
 
-    // acc += P V, V^T from shared memory as the column-major B operand.
+  float o[DH / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // running row max of the raw scores
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+
+  // Q, K and V boxes: rows of 32 bytes, 8-row groups 256 bytes apart.
+  const uint32_t q_rows = sq + wg * 64 * kBox * 2;
+  mbar_wait(q_full, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kb = kb_begin; kb < kb_end; ++kb) {
+    const int k_lo = kb * kBk;
+    mbar_wait(full0 + 8 * stage, phase);
+    // Does this warpgroup see any live key of the tile, and must it mask?
+    const bool live = wq_lo < wq_hi && !(p.causal && k_lo > wq_hi - 1) &&
+                      !(p.window > 0 && k_lo + kBk - 1 < wq_lo - p.window + 1);
+    if (live) {
+      const bool masked = (p.causal && k_lo + kBk - 1 > wq_lo) ||
+                          (p.window > 0 && wq_hi - 1 - k_lo >= p.window) ||
+                          k_lo + kBk > p.Sk;
+      const uint32_t kt = sk + stage * L::kTile, vt = sv + stage * L::kTile;
+
+      // S = Q K^T: dh/16 k-steps, each one [64, 16] Q box against one
+      // [128, 16] K box.
+      float s[kBk / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kDt; ++n) {
-        const bf16* vr = &vt[(n * 8 + g) * kVStride + kk * 16 + 2 * t];
-        const uint32_t bfr[2] = {ld32(vr), ld32(vr + 8)};
-        mma_bf16(acc[n], pf[kk], bfr);
+      for (int c = 0; c < kChunks; ++c)
+        wgmma_ss_n128(s, desc_sw32(q_rows + c * kBq * kBox * 2, 1, 16),
+                      desc_sw32(kt + c * kBoxBytes, 1, 16), c > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? r0 : r1;
+            const int col = k_lo + j * 8 + 2 * t + (e & 1);
+            bool ok = col < p.Sk;
+            if (p.causal) ok = ok && row >= col;
+            if (p.window > 0) ok = ok && row - col < p.window;
+            if (!ok) s[4 * j + e] = kNegInf;
+          }
+        }
       }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < kBk / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float c0 = ex2((m0 - mx0) * p.scale_log2);
+      const float c1 = ex2((m1 - mx1) * p.scale_log2);
+      m0 = mx0;
+      m1 = mx1;
+      // A row masked so far (max still -1e30) takes p = 0 for its masked
+      // entries where the reference takes 1: either way the first real
+      // maximum wipes them (its correction factor is 0).  Subtracting 0
+      // keeps the FMA's rounding residual at -1e30 (~1e22) out of ex2.
+      const float ms0 = mx0 == kNegInf ? 0.f : mx0 * p.scale_log2;
+      const float ms1 = mx1 == kNegInf ? 0.f : mx1 * p.scale_log2;
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        o[4 * n] *= c0;
+        o[4 * n + 1] *= c0;
+        o[4 * n + 2] *= c1;
+        o[4 * n + 3] *= c1;
+      }
+
+      // P = exp2(S scale log2e - m scale log2e): f32 into the row sums,
+      // bf16 into A fragments (two neighbouring n8 accumulator tiles are one
+      // k16 A fragment).
+      uint32_t pf[kBk / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBk / 8; ++j) {
+        const float e0 = ex2(fmaf(s[4 * j], p.scale_log2, -ms0));
+        const float e1 = ex2(fmaf(s[4 * j + 1], p.scale_log2, -ms0));
+        const float e2 = ex2(fmaf(s[4 * j + 2], p.scale_log2, -ms1));
+        const float e3 = ex2(fmaf(s[4 * j + 3], p.scale_log2, -ms1));
+        l0 += e0 + e1;
+        l1 += e2 + e3;
+        pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(e0, e1);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(e2, e3);
+      }
+
+      // O += P V: each k-step takes 16 keys of the V tile, all dh columns
+      // (dh/16 boxes, LBO apart), as an MN-major operand.
+      fence_regs(o);
+      fence_regs(pf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBk / 16; ++kk)
+        wgmma_pv<DH>(o, pf[kk],
+                     desc_sw32(vt + kk * 16 * kBox * 2, kBoxBytes >> 4, 16));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
@@ -234,21 +502,71 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int n = 0; n < kDt; ++n) {
+  for (int n = 0; n < DH / 8; ++n) {
     const int c = n * 8 + 2 * t;
     if (r0 < p.Sq)
       *reinterpret_cast<uint32_t*>(ob + r0 * p.o_ss + c) =
-          pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
+          pack_bf16(o[4 * n] / d0, o[4 * n + 1] / d0);
     if (r1 < p.Sq)
       *reinterpret_cast<uint32_t*>(ob + r1 * p.o_ss + c) =
-          pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
+          pack_bf16(o[4 * n + 2] / d1, o[4 * n + 3] / d1);
   }
 }
 
+// ---- host side ------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver that cudart already loaded.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over a strided [batch, seq, heads, dh] bf16 tensor whose boxes
+// are [16 columns, rows of the sequence] with the 32-byte swizzle; element
+// strides (batch, seq, head) as given, dh contiguous.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
+            int seq, int heads, int dh, int64_t sb, int64_t ss, int64_t sh,
+            int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * 2),
+                                 static_cast<cuuint64_t>(sh * 2),
+                                 static_cast<cuuint64_t>(sb * 2)};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DH>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.Sq + kBq - 1) / kBq, p.H, p.B);
-  flash_fwd<DH><<<grid, kThreads, 0, stream>>>(p);
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
+                   const CUtensorMap& tv, const Params& p, int B,
+                   cudaStream_t stream) {
+  const int bytes = Smem<DH>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kBq - 1) / kBq, p.H, B);
+  flash_fwd<DH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -257,35 +575,46 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // shape: B, H, KV, Sq, Sk, dh.  strides: (batch, seq, head) element strides
 // of q, k, v, o in that order.  Launches on `stream`; returns
 // cudaGetLastError() as an int (cudaErrorInvalidValue for a head dim it was
-// not compiled for).
+// not compiled for or a tensor map the driver refuses,
+// cudaErrorNotSupported without cuTensorMapEncodeTiled).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const int64_t* shape,
                                       const int64_t* strides, int causal,
                                       int window, float scale, void* stream) {
+  const int B = static_cast<int>(shape[0]), H = static_cast<int>(shape[1]);
+  const int KV = static_cast<int>(shape[2]);
+  const int Sq = static_cast<int>(shape[3]), Sk = static_cast<int>(shape[4]);
+  const int dh = static_cast<int>(shape[5]);
+  if (dh != 64 && dh != 80 && dh != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!encode(fn, &tq, q, B, Sq, H, dh, strides[0], strides[1], strides[2],
+              kBq) ||
+      !encode(fn, &tk, k, B, Sk, KV, dh, strides[3], strides[4], strides[5],
+              kBk) ||
+      !encode(fn, &tv, v, B, Sk, KV, dh, strides[6], strides[7], strides[8],
+              kBk))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
-  p.B = static_cast<int>(shape[0]);
-  p.H = static_cast<int>(shape[1]);
-  p.KV = static_cast<int>(shape[2]);
-  p.Sq = static_cast<int>(shape[3]);
-  p.Sk = static_cast<int>(shape[4]);
-  p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
-  p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
-  p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
-  p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
+  p.H = H;
+  p.KV = KV;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.o_sb = strides[9];
+  p.o_ss = strides[10];
+  p.o_sh = strides[11];
   p.causal = causal;
   p.window = window;
-  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (shape[5]) {
-    case 64: return static_cast<int>(launch<64>(p, s));
-    case 80: return static_cast<int>(launch<80>(p, s));
-    case 128: return static_cast<int>(launch<128>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 64: return static_cast<int>(launch<64>(tq, tk, tv, p, B, s));
+    case 80: return static_cast<int>(launch<80>(tq, tk, tv, p, B, s));
+    default: return static_cast<int>(launch<128>(tq, tk, tv, p, B, s));
   }
 }
 

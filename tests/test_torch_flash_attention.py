@@ -110,17 +110,37 @@ def test_noncausal():
         got, _f32(rref.attention_ref(jq, jk, jv, causal=False)), atol=2e-3)
 
 
-@pytest.mark.parametrize("S,chunk,window,causal", [
-    (256, 64, None, True),
-    (256, 64, 96, True),
-    (211, 64, None, True),          # no divisor in (32, 64]: padded keys
-    (211, 64, 50, True),
-    (130, 1024, None, False),
-    (200, 128, 64, True),           # chunk 100, window across chunks
-])
-def test_model_layout_matches_blockwise_attention(S, chunk, window, causal):
-    B, H, KV, dh = 2, 4, 2, 80
-    arrays = _inputs(S, B, H, KV, S, dh, layout="model")
+# (S, chunk, window, causal, H, KV, dh): danube's head dim 80 first, then
+# the head dims of the configs still to be served, which the card checks too.
+MODEL_LAYOUT_CASES = [
+    (256, 64, None, True, 4, 2, 80),
+    (256, 64, 96, True, 4, 2, 80),
+    (211, 64, None, True, 4, 2, 80),    # no divisor in (32, 64]: padded keys
+    (211, 64, 50, True, 4, 2, 80),
+    (130, 1024, None, False, 4, 2, 80),
+    (200, 128, 64, True, 4, 2, 80),     # chunk 100, window across chunks
+] + [(S, chunk, window, causal, H, KV, dh)
+     for dh in (64, 128)
+     for S, chunk, window, causal, H, KV in [
+         (200, 128, 100, True, 4, 1),   # ragged, GQA x4, window across chunks
+         (211, 64, None, True, 4, 4),   # whisper-base's heads: one per kv head
+         (256, 64, 50, True, 8, 2),
+         (130, 1024, None, False, 2, 2)]]
+
+
+def _case_id(case):
+    S, chunk, window, causal, H, KV, dh = case
+    base = f"{S}-{chunk}-{window}-{causal}"
+    return base if dh == 80 else f"{base}-dh{dh}-h{H}kv{KV}"
+
+
+@pytest.mark.parametrize("S,chunk,window,causal,H,KV,dh", MODEL_LAYOUT_CASES,
+                         ids=[_case_id(c) for c in MODEL_LAYOUT_CASES])
+def test_model_layout_matches_blockwise_attention(S, chunk, window, causal,
+                                                  H, KV, dh):
+    B = 2
+    arrays = _inputs(S if dh == 80 else S + dh, B, H, KV, S, dh,
+                     layout="model")
     (jq, jk, jv), (q, k, v) = _both(arrays, "bf16")
     want = rattn.blockwise_attention(jq, jk, jv, causal=causal, window=window,
                                      chunk=chunk)
