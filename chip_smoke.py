@@ -11,14 +11,23 @@ without the final result line):
    ``src/repro_torch/kernels/csrc/`` (one process per source, all at once);
 2. kernel — the ``dvfs_opt`` CUDA kernel against its plain torch version
    on the card, on a 1,048,576-row fuzz matrix made from ``--seed`` plus the
-   app-library rows; then both timed with CUDA events at 300k rows (the
-   main path's Algorithm-1 batch) and at 1M rows, beside the least time the
-   card could take;
+   app-library rows, and on the rows of ``dvfs_opt.edge_rows`` (a NaN in
+   each input column, infinite and just-feasible windows, gamma 0, delta 0
+   and 1, a one-point box, an empty core range): every edge row bit-equal,
+   NaN-aware, and every setting that is a number inside its row's box,
+   except on the empty-box rows, where no setting can be; the same rows and
+   a slice of the fuzz matrix bit-equal at the grids (16, 4), (8, 8) and
+   (8192, 8192);
 3. online — the main path: ``schedule_online`` on a 100k-task uniform day
    over the three-class fleet (l=4, theta=0.9, EDL, pipelined) with the
    kernel, checked against the same run through the torch grid+golden
-   solvers on the card;
-4. offline — ``schedule_offline`` on 20k tasks, the same checks;
+   solvers on the card; the row count of every kernel launch is recorded
+   and printed;
+4. offline — ``schedule_offline`` on 20k tasks, the same checks and the
+   same record; then the kernel and its plain version timed with CUDA
+   events at the median launch of the online day, at 300k rows (the day's
+   Algorithm-1 work, 100k tasks x 3 classes, as one batch) and at 1M rows,
+   beside the least time the card could take;
 5. attention kernel — ``flash_attention`` (CUDA) against its plain torch
    version in bf16 at h2o-danube-1.8b's serving shape (B 8, S 2048, H 32,
    KV 8, dh 80, causal, window 4096), at B 1, S 8192, where the window
@@ -62,6 +71,7 @@ import argparse
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -73,6 +83,10 @@ ROOT = Path(__file__).resolve().parent
 MAIN_ROWS = 300_000
 FUZZ_ROWS = 1 << 20
 CLASSES = ("gtx-1080ti", "tpu-v5e", "v100-sxm2")
+# dvfs_opt at grids other than the main path's DEFAULT_GRID, on the edge rows
+# and 2 x GRID_ROWS fuzz rows.
+OTHER_GRIDS = ((16, 4), (8, 8), (8192, 8192))
+GRID_ROWS = 2048
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, and
 # HBM3 bandwidth.
@@ -153,7 +167,6 @@ OPS_BRACKET = 12      # f0_best, f_lo, f_hi, the guard
 OPS_ROW = 41          # g1(v_max), t_min, feasibility, pick, p, t, e
 BYTES_ROW = 16 * 4 + 8 * 4   # one [16] f32 row read, one [8] f32 row written
 
-
 def ops_per_row(g0: int, g1: int) -> int:
     """Operations of one row: two hierarchical sweeps of g0 + g1 points plus
     the re-evaluation at each winner, then the decision rule."""
@@ -230,6 +243,50 @@ def fuzz_matrix(np, dvfs, tasks, seed: int, n: int):
     return np.ascontiguousarray(np.concatenate([fuzz, *lib_rows]), np.float32)
 
 
+def fc_max(np, mat):
+    """g1(v_max) of each task row: the top of its core-frequency range."""
+    return np.sqrt(np.maximum(mat[:, 9] - 0.5, 0.0) / 2.0) + 0.5
+
+
+def outside_box(np, got, mat, tol: float = 1e-4):
+    """Rows of ``got`` (the solutions of task rows ``mat``) with a setting
+    that is a number outside its row's box by more than ``tol``: v in
+    [v_min, v_max], fc in [fc_min, g1(v_max)], fm in [fm_min, fm_max].  A
+    NaN setting or bound compares false."""
+    lo = np.stack([mat[:, 8], mat[:, 10], mat[:, 11]], axis=1)
+    hi = np.stack([mat[:, 9], fc_max(np, mat), mat[:, 12]], axis=1)
+    with np.errstate(invalid="ignore"):
+        return np.any((got[:, :3] < lo - tol) | (got[:, :3] > hi + tol),
+                      axis=1)
+
+
+def empty_core_range(np, mat):
+    """Rows whose core-frequency range is empty, fc_min > g1(v_max): the
+    solvers, the reference's too, then return fc = g1(v_max) < fc_min."""
+    with np.errstate(invalid="ignore"):
+        return mat[:, 10] > fc_max(np, mat)
+
+
+@contextlib.contextmanager
+def launch_rows(ops):
+    """Records the row count of every ``dvfs_opt`` launch that the solver
+    stack makes inside the block (``ops.dvfs_solve_matrix`` is the one
+    caller of ``dvfs_solve_kernel``); yields the list."""
+    rows = []
+    inner = ops.dvfs_solve_kernel
+
+    def recording(tasks, **kw):
+        if tasks.device.type == "cuda" and tasks.shape[0]:
+            rows.append(int(tasks.shape[0]))
+        return inner(tasks, **kw)
+
+    ops.dvfs_solve_kernel = recording
+    try:
+        yield rows
+    finally:
+        ops.dvfs_solve_kernel = inner
+
+
 def event_ms(torch, fn, reps: int) -> float:
     """Device time of one call: ``reps`` calls back to back between two
     CUDA events, over the count; the median of three such runs, after
@@ -252,6 +309,23 @@ def event_ms(torch, fn, reps: int) -> float:
         times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, symbol: str, reps: int):
+    """Device time of one launch of the kernel ``symbol``: ``reps`` calls
+    under ``torch.profiler``, the kernel's device time over its launches,
+    or None if the profiler saw none.  Unlike ``event_ms`` it leaves out
+    the time the card waits for the host, which is the longer of the two at
+    small launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = device_split(prof.key_averages(), symbol)[0]["kernel"]
+    return ms / n if n else None
 
 
 def norm_err(got, want) -> float:
@@ -353,7 +427,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import dvfs, online, scheduling, solver_cache, tasks
-    from repro_torch.kernels import build, dvfs_opt
+    from repro_torch.kernels import build, dvfs_opt, ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -386,36 +460,58 @@ def main(argv=None) -> int:
     agree_dp = float(np.mean(got[:, 6] == want[:, 6]))
     agree_feas = float(np.mean(got[:, 7] == want[:, 7]))
     bit_equal = float(np.mean(np.all(got == want, axis=1)))
-    fc_hi = np.sqrt(np.maximum(mat[:, 9] - 0.5, 0.0) / 2.0) + 0.5
-    in_box = (np.all(got[:, 0] >= mat[:, 8] - 1e-4)
-              and np.all(got[:, 0] <= mat[:, 9] + 1e-4)
-              and np.all(got[:, 1] >= mat[:, 10] - 1e-4)
-              and np.all(got[:, 1] <= fc_hi + 1e-4)
-              and np.all(got[:, 2] >= mat[:, 11] - 1e-4)
-              and np.all(got[:, 2] <= mat[:, 12] + 1e-4))
     checks.expect(max_rel <= 1e-5, f"kernel: energy max rel {max_rel} <= 1e-5")
     checks.expect(med_rel <= 1e-7, f"kernel: energy median rel {med_rel} <= 1e-7")
     checks.expect(agree_dp >= 0.999, f"kernel: deadline_prior agrees {agree_dp}")
     checks.expect(agree_feas >= 0.999, f"kernel: feasible agrees {agree_feas}")
-    checks.expect(bool(in_box), "kernel: v, fc, fm inside each row's box (1e-4)")
     print(f"phase kernel: {mat.shape[0]} rows, energy max rel {max_rel:.3e}, "
           f"median {med_rel:.3e}, max abs err {max_abs:.3e}, rows bit-equal "
           f"{bit_equal:.6f}, deadline_prior agree {agree_dp:.6f}, feasible "
           f"agree {agree_feas:.6f}", flush=True)
 
-    timing = {}
-    for rows in (MAIN_ROWS, FUZZ_ROWS):
-        xs = x[:rows].contiguous()
-        k_ms = event_ms(torch, lambda: dvfs_opt.dvfs_solve_cuda(xs), 20)
-        p_ms = event_ms(torch, lambda: dvfs_opt.dvfs_solve_plain(xs), 5)
-        b_ms, b_by = bound_ms(rows, g0, g1)
-        timing[rows] = (k_ms, p_ms, b_ms, b_by)
-        print(f"phase kernel timing: {rows} rows: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{ops_per_row(g0, g1)} ops and {BYTES_ROW} bytes a row), "
-              f"kernel at {b_ms / k_ms:.1%} of the bound", flush=True)
-    del x, xs
-    torch.cuda.empty_cache()
+    # The edge rows: NaN and inf inputs, the branches' ends, degenerate and
+    # empty boxes.  Bit for bit, a NaN matching a NaN.
+    edge = dvfs_opt.edge_rows()
+    xe = torch.from_numpy(edge).to(dev)
+    got_e = dvfs_opt.dvfs_solve_cuda(xe).cpu().numpy()
+    want_e = dvfs_opt.dvfs_solve_plain(xe).cpu().numpy()
+    same = (got_e == want_e) | (np.isnan(got_e) & np.isnan(want_e))
+    edge_equal = float(np.mean(np.all(same, axis=1)))
+    checks.expect(edge_equal == 1.0,
+                  f"kernel: edge rows bit-equal {edge_equal}, rows "
+                  f"{np.nonzero(~np.all(same, axis=1))[0].tolist()}")
+    print(f"phase kernel edge rows: {edge.shape[0]} rows, rows bit-equal "
+          f"(NaN-aware) {edge_equal:.6f}, outputs NaN "
+          f"{int(np.isnan(got_e).sum())} (plain {int(np.isnan(want_e).sum())})",
+          flush=True)
+
+    # Every setting that is a number inside its row's box, on the fuzz and
+    # the edge rows, except where the core range is empty.
+    all_got, all_mat = np.concatenate([got, got_e]), np.concatenate([mat, edge])
+    empty = empty_core_range(np, all_mat)
+    out = outside_box(np, all_got, all_mat) & ~empty
+    checks.expect(not out.any(), f"kernel: {int(out.sum())} rows with v, fc "
+                  "or fm outside the row's box (1e-4)")
+    print(f"phase kernel in box: {all_mat.shape[0] - int(empty.sum())} rows "
+          f"checked, {int(out.sum())} outside; skipped only the "
+          f"{int(empty.sum())} empty-box rows (fc_min > g1(v_max), where the "
+          f"solvers return fc = g1(v_max) < fc_min)", flush=True)
+    # Other grids than the main path's: at (16, 4) and (8, 8) some lanes of
+    # a row have no sweep point, and (8192, 8192) needs more than 48 KB of
+    # shared memory for the fractions.  The edge rows and the first and last
+    # GRID_ROWS rows of the fuzz matrix (the last are app-library rows).
+    xg = torch.cat([x[:GRID_ROWS], x[-GRID_ROWS:], xe])
+    for grid in OTHER_GRIDS:
+        got_g = dvfs_opt.dvfs_solve_cuda(xg, grid).cpu().numpy()
+        want_g = dvfs_opt.dvfs_solve_plain(xg, grid).cpu().numpy()
+        same_g = np.all((got_g == want_g) | (np.isnan(got_g)
+                                             & np.isnan(want_g)), axis=1)
+        checks.expect(bool(same_g.all()),
+                      f"kernel: grid {grid}: {int((~same_g).sum())} rows "
+                      "differ from the plain version")
+        print(f"phase kernel grid {grid}: {xg.shape[0]} rows, rows "
+              f"bit-equal (NaN-aware) {float(same_g.mean()):.6f}", flush=True)
+    del xe, xg
 
     # ---- phase 3: the online main path (the kernel) and its grid+golden twin.
     day = tasks.generate_trace(100_000, "uniform", seed=0)
@@ -423,15 +519,22 @@ def main(argv=None) -> int:
     for use_kernel in (True, False):
         solver_cache.GLOBAL_CACHE.clear()
         dvfs_opt.dvfs_solve_cuda.launches = 0
-        t = time.perf_counter()
-        res = online.schedule_online(day, l=4, theta=0.9, algorithm="edl",
-                                     classes=CLASSES, use_kernel=use_kernel,
-                                     pipeline=True, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        runs[use_kernel] = (res, wall, dvfs_opt.dvfs_solve_cuda.launches)
+        with launch_rows(ops) as rows:
+            t = time.perf_counter()
+            res = online.schedule_online(day, l=4, theta=0.9,
+                                         algorithm="edl", classes=CLASSES,
+                                         use_kernel=use_kernel, pipeline=True,
+                                         device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        runs[use_kernel] = (res, wall, dvfs_opt.dvfs_solve_cuda.launches, rows)
         check_schedule(checks, res, len(day), f"online use_kernel={use_kernel}")
-    (rk, wk, launches_online), (rp, wp, launches_plain) = runs[True], runs[False]
+    (rk, wk, launches_online, rows_online), (rp, wp, launches_plain, _) = (
+        runs[True], runs[False])
+    checks.expect(len(rows_online) == launches_online,
+                  f"online: {len(rows_online)} launches recorded, counter "
+                  f"{launches_online}")
+    print(f"phase online launches: rows a launch {rows_online}", flush=True)
     checks.expect(launches_online > 0,
                   f"online: kernel launched {launches_online} times")
     checks.expect(launches_plain == 0,
@@ -472,9 +575,11 @@ def main(argv=None) -> int:
     busy_ms = sum(e.self_device_time_total for e in spans) / 1e3
     top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in spans[:6])
+    day_dvfs_ms, day_dvfs_n = device_split(spans, "dvfs_opt_kernel")[0]["kernel"]
     print(f"phase online profile: wall {wall:.3f} s under the profilers, "
           f"device busy {busy_ms:.3f} ms, idle share "
-          f"{1.0 - busy_ms / 1e3 / wall:.4f}; device top: {top}", flush=True)
+          f"{1.0 - busy_ms / 1e3 / wall:.4f}; dvfs_opt_kernel "
+          f"{day_dvfs_ms:.4f} ms x{day_dvfs_n}; device top: {top}", flush=True)
     layers = {  # (module file, function) -> layer; cumulative host seconds
         ("online.py", "place_group"): "placement",
         ("online.py", "dispatch"): "solve dispatch (config + readjust)",
@@ -500,15 +605,21 @@ def main(argv=None) -> int:
     for use_kernel in (True, False):
         solver_cache.GLOBAL_CACHE.clear()
         dvfs_opt.dvfs_solve_cuda.launches = 0
-        t = time.perf_counter()
-        res = scheduling.schedule_offline(batch, l=4, theta=0.9,
-                                          algorithm="edl", classes=CLASSES,
-                                          use_kernel=use_kernel, device=dev)
-        torch.cuda.synchronize()
-        runs[use_kernel] = (res, time.perf_counter() - t,
-                            dvfs_opt.dvfs_solve_cuda.launches)
+        with launch_rows(ops) as rows:
+            t = time.perf_counter()
+            res = scheduling.schedule_offline(batch, l=4, theta=0.9,
+                                              algorithm="edl", classes=CLASSES,
+                                              use_kernel=use_kernel, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        runs[use_kernel] = (res, wall, dvfs_opt.dvfs_solve_cuda.launches, rows)
         check_schedule(checks, res, len(batch), f"offline use_kernel={use_kernel}")
-    (ok_, wk, launches_offline), (op_, wp, _) = runs[True], runs[False]
+    (ok_, wk, launches_offline, rows_offline), (op_, wp, _, _) = (
+        runs[True], runs[False])
+    checks.expect(len(rows_offline) == launches_offline,
+                  f"offline: {len(rows_offline)} launches recorded, counter "
+                  f"{launches_offline}")
+    print(f"phase offline launches: rows a launch {rows_offline}", flush=True)
     checks.expect(launches_offline > 0,
                   f"offline: kernel launched {launches_offline} times")
     e_rel = abs(ok_.e_total - op_.e_total) / op_.e_total
@@ -521,6 +632,30 @@ def main(argv=None) -> int:
           f"{len(batch) / wk:.1f} tasks/s ({wk:.3f} s) vs "
           f"{len(batch) / wp:.1f} tasks/s ({wp:.3f} s) grid+golden", flush=True)
 
+    # The kernel's time at the online day's median launch, at the day's
+    # Algorithm-1 work as one batch and at 1M rows, on the fuzz rows: by
+    # CUDA events around calls back to back, and its device time alone by
+    # the profiler (at a few hundred rows the host's launch work is longer
+    # than the kernel, and the events time that).
+    med_rows = statistics.median_low(rows_online or [MAIN_ROWS])
+    timing = {}
+    for rows in (med_rows, MAIN_ROWS, FUZZ_ROWS):
+        xs = x[:rows].contiguous()
+        k_ms = event_ms(torch, lambda: dvfs_opt.dvfs_solve_cuda(xs), 20)
+        d_ms = device_ms(torch, lambda: dvfs_opt.dvfs_solve_cuda(xs),
+                         "dvfs_opt_kernel", 20)
+        p_ms = event_ms(torch, lambda: dvfs_opt.dvfs_solve_plain(xs), 5)
+        b_ms, b_by = bound_ms(rows, g0, g1)
+        timing[rows] = (k_ms, p_ms, b_ms, b_by, d_ms)
+        d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        print(f"phase kernel timing: {rows} rows: kernel {k_ms:.4f} ms "
+              f"(device {d_txt}), "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{ops_per_row(g0, g1)} ops and {BYTES_ROW} bytes a row), "
+              f"kernel at {b_ms / k_ms:.1%} of the bound", flush=True)
+    del x, xs
+    torch.cuda.empty_cache()
+
     attn = attention_phase(checks, torch, dev, args.seed)
     ssd = ssd_phase(checks, torch, dev, args.seed)
     serve = {kernel: serve_phase(checks, np, torch, dev, arch, kernel,
@@ -531,8 +666,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
               file=sys.stderr)
         return 1
-    k_main, p_main, b_main, by_main = timing[MAIN_ROWS]
-    k_1m, p_1m, b_1m, _ = timing[FUZZ_ROWS]
+    k_main, p_main, b_main, by_main, d_main = timing[MAIN_ROWS]
+    k_1m, p_1m, b_1m, _, d_1m = timing[FUZZ_ROWS]
+    k_med, p_med, b_med, _, d_med = timing[med_rows]
     print(json.dumps({"kernels": [{
         "name": "dvfs_opt", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dvfs_opt.cu",
@@ -541,8 +677,14 @@ def main(argv=None) -> int:
         "max_abs_err": max_abs, "max_rel": max_rel,
         "ms": k_main, "plain_ms": p_main, "bound_ms": b_main,
         "bound_by": by_main, "library_ms": None,
-        "ms_300k": k_main, "ms_1m": k_1m, "plain_ms_1m": p_1m,
-        "bound_ms_1m": b_1m}, {
+        "device_ms": d_main, "ms_300k": k_main,
+        "ms_1m": k_1m, "device_ms_1m": d_1m, "plain_ms_1m": p_1m,
+        "bound_ms_1m": b_1m,
+        "median_online_rows": med_rows, "ms_median_online": k_med,
+        "device_ms_median_online": d_med,
+        "plain_ms_median_online": p_med, "bound_ms_median_online": b_med,
+        "launch_rows_online": rows_online, "day_device_ms": day_dvfs_ms,
+        "launch_rows_offline": rows_offline}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",

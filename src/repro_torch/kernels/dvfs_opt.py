@@ -56,7 +56,7 @@ from repro_torch.kernels.layout import (ALLOWED, BIG_D, C_COEF, DELTA, FC_MIN,
                                         READJUST, SOL_COLS, T0, V_MAX, V_MIN,
                                         col)
 
-BT = 128   # tasks per CUDA block (one thread per task row)
+BT = 128   # rows per block of the Pallas reference
 DEFAULT_GRID = (64, 64)  # (coarse, fine) sweep points
 INF = 1e30
 
@@ -68,6 +68,64 @@ PAD_ROW = np.asarray(
     [[1.0, 1.0, 1.0, 1.0, 0.5, 0.1, 1e6, 0.0, *WIDE.bounds(), 0.0, 0.0, 0.0]],
     np.float32)
 assert PAD_ROW.shape == (1, NCOL)
+
+#: An empty core-frequency range: fc_min above g1(v_max) = 0.7443.  The
+#: solvers then return fc = g1(v_max), below fc_min, as the reference does.
+EMPTY_CORE_BOX = (0.5138, 0.6194, 0.7792, 0.6737, 1.1946)
+
+
+def _f32_g1(v):
+    """g1(v) in float32, rounded operation by operation as the kernel does."""
+    v = np.float32(v)
+    return (np.sqrt(np.maximum(v - np.float32(G1_A), np.float32(0.0))
+                    / np.float32(G1_B)) + np.float32(G1_C))
+
+
+def edge_rows() -> np.ndarray:
+    """``[m, 16]`` f32 rows at the edges of the kernel's input domain, each
+    once with readjust 0 and once with readjust 1 (where that column is not
+    the NaN one):
+
+    * PAD_ROW with a binding window (t_min 0.975 < allowed 1.1 < the
+      unconstrained optimum's 1.283), and with its own loose one, each with
+      a NaN in each of the 13 input columns in turn;
+    * PAD_ROW with ``allowed`` +inf, one float below t_min (inside the
+      1e-6 feasibility slack), 1e-5 below it (outside) and exactly t_min;
+    * gamma 0 (fm = fm_max), delta 0 (fc = fc_min), delta 1, the one-point
+      box and :data:`EMPTY_CORE_BOX`, each at allowed 1.1 and 1e6.
+    """
+    base = PAD_ROW[0].copy()
+    base[ALLOWED] = 1.1
+    rows = []
+    for window in (base, PAD_ROW[0]):
+        for c in range(KEY_COLS):
+            r = window.copy()
+            r[c] = np.nan
+            rows.append(r)
+    fc_max = _f32_g1(base[V_MAX])
+    dd, delta, t0 = base[BIG_D], base[DELTA], base[T0]
+    t_min = dd * (delta / fc_max + (np.float32(1.0) - delta) / base[FM_MAX]) + t0
+    for allowed in (np.inf, np.nextafter(t_min, np.float32(0.0)),
+                    t_min - np.float32(1e-5), t_min):
+        r = base.copy()
+        r[ALLOWED] = allowed
+        rows.append(r)
+    v = np.float32(0.9)
+    one_point = (v, v, _f32_g1(v), 1.0, 1.0)
+    for col_, value, box in ((GAMMA, 0.0, None), (DELTA, 0.0, None),
+                             (DELTA, 1.0, None), (None, None, one_point),
+                             (None, None, EMPTY_CORE_BOX)):
+        for allowed in (1.1, 1e6):
+            r = base.copy()
+            r[ALLOWED] = allowed
+            if col_ is not None:
+                r[col_] = value
+            if box is not None:
+                r[V_MIN:KEY_COLS] = box
+            rows.append(r)
+    rows += [np.concatenate([r[:READJUST], [1.0], r[READJUST + 1:]])
+             for r in rows if not np.isnan(r[READJUST])]
+    return np.asarray(rows, np.float32)
 
 
 def _check_grid(grid) -> tuple:

@@ -8,7 +8,9 @@ body runs under XLA, which contracts a*b+c, so a sweep can pick the
 neighbouring grid point of an almost flat minimum).  Against the oracles,
 the bounds of ``tests/test_kernels.py``: max rel < 1e-5 and > 99%
 deadline-prior agreement on the library, and on the fuzz rows median rel
-< 2e-3, mean < 1e-2, >= 90% agreement, every setting inside its box."""
+< 2e-3, mean < 1e-2, >= 90% agreement, every setting inside its box.  On
+the edge rows (NaN and inf inputs), NaN in the same places as the Pallas
+kernel's, equal flags, finite values within rel 1e-6."""
 
 import numpy as np
 import pytest
@@ -109,6 +111,25 @@ def test_plain_matches_pallas_library():
     _agree(got, np.asarray(rkernel.dvfs_solve_kernel(jnp.asarray(rows),
                                                      interpret=True)),
            1.0, 1e-6)
+
+
+@pytest.mark.parametrize("grid", [(64, 64), (8, 8)])
+def test_plain_matches_pallas_edge_rows(grid):
+    """The edge rows (a NaN in each input column, infinite and just-feasible
+    windows, gamma 0, delta 0 and 1, a one-point box, an empty core range):
+    NaN in the same places, equal flags, finite values within rel 1e-6."""
+    mat = dvfs_opt.edge_rows()
+    assert all(np.isnan(mat[:, c]).any() for c in range(13))
+    assert set(mat[:, 7][~np.isnan(mat[:, 7])]) == {0.0, 1.0}
+    got = dvfs_opt.dvfs_solve_plain(torch.from_numpy(mat), grid).numpy()
+    want = np.asarray(rkernel.dvfs_solve_kernel(jnp.asarray(mat), grid=grid,
+                                                interpret=True))
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[:, 6:], want[:, 6:])
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert np.all(np.abs(got[fin] - want[fin]) <= 1e-6 * np.abs(want[fin]))
 
 
 @pytest.mark.parametrize("grid", [(8, 8), (16, 4)])

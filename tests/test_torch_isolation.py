@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no file of it (nor ``chip_smoke.py``) imports them."""
+package, and no file of it (nor ``chip_smoke.py`` or ``dvfs_opt_probe.py``)
+imports them."""
 
 import json
 import os
@@ -41,7 +42,7 @@ def test_import_loads_no_jax_and_no_reference():
 
 def _sources():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "dvfs_opt_probe.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
