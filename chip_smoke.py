@@ -41,14 +41,34 @@ without the final result line):
    a from Mamba2's own ranges, y and the final state, and a 256-token
    segment that starts from a state; timed beside the plain version and
    the bound;
-7. serve — ``Server.run`` for h2o-danube-1.8b and mamba2-370m at full
-   width (random weights from ``--seed``): 8 requests of 2,048-token
+7. family attention — ``flash_attention`` (CUDA) against its plain version
+   at the shapes the other served families give it: recurrentgemma-2b's
+   (dh 256, window 2048, one kv head), whisper-base's encoder (non-causal)
+   and cross-attention (Sq 2048 over Sk 1500), internvl2-2b's bidirectional
+   image prefix of 256 tokens, and the head dims the wrapper zero-pads (16,
+   every reduced config's, and 160, stablelm-12b's); q x4 so that plain
+   renderings of faults (the diagonal dropped, the last key dropped, the
+   causal mask where there is none, the prefix a key short) exceed the bar;
+   each timed beside the plain version, ``scaled_dot_product_attention``
+   on the same mask (the backend it took named) and the bound;
+8. ssd padded — ``ssd_scan`` at (P, N) = (16, 16) and (16, 64), which the
+   wrapper zero-pads to the kernel's (64, 128), against the plain version;
+9. jobs — ``launch/energy_sched.py``'s day of LM jobs on the three-class
+   fleet with the ``dvfs_opt`` kernel, against the same day through the
+   torch grid+golden solvers on the card;
+10. serve — ``Server.run`` at full width (random weights from ``--seed``)
+   for h2o-danube-1.8b (dense), mamba2-370m (ssm), recurrentgemma-2b
+   (hybrid), whisper-base (encdec), internvl2-2b (vlm) and
+   moonshot-v1-16b-a3b (moe, 16 of its 48 layers: all 48 with their
+   float32 master weights would need 168 GB): 8 requests of 2,048-token
    prompts, 64 new tokens each.  Checks the kernel launch counts (one per
-   layer of the family's kernel, none of the other), finite logits, the
+   attention or SSD call of a prefill, none of the other), finite logits, the
    model's prefill through the kernels against the same prefill through
    the plain versions (each layer's call on its own inputs, then the logits
-   and the whole decode cache), and prefill against decode at full width on
-   both paths; one prefill and a window of decode steps under
+   and the whole decode cache; for moe on the kernel path's router
+   decisions, replayed), and prefill against decode at full width on both
+   paths (for moe under the JAX package's allowance for capacity routing,
+   three times the bar); one prefill and a window of decode steps under
    ``torch.profiler``, the prefill's device time split between the
    family's kernel, the matmuls and the rest.
 
@@ -99,8 +119,15 @@ PEAK_BYTES = 3.35e12
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 CONSIST_REQUESTS, CONSIST_STEPS = 2, 4
 DECODE_PROFILE = 8   # decode steps under the profiler
-SERVE_ARCHS = (("h2o-danube-1.8b", "flash_attention"),
-               ("mamba2-370m", "ssd_scan"))
+# (arch, family kernel, layers kept or None for all): moonshot-v1-16b-a3b
+# keeps 16 of its 48 layers at full width, 9.8 B parameters, 59 GB as
+# float32 master weights plus their bf16 serving copy.
+SERVE_ARCHS = (("h2o-danube-1.8b", "flash_attention", None),
+               ("mamba2-370m", "ssd_scan", None),
+               ("recurrentgemma-2b", "flash_attention", None),
+               ("whisper-base", "flash_attention", None),
+               ("internvl2-2b", "flash_attention", None),
+               ("moonshot-v1-16b-a3b", "flash_attention", 16))
 # Kernel phases: (B, S, H, KV, dh, window) causal attention at danube's
 # serving shape and at a length where the window skips blocks; (B, S, H,
 # P, N) of the SSD scan at mamba2-370m's serving shape.
@@ -117,7 +144,26 @@ ATTN_EDGE_Q_SCALE = 4.0
 # 128 (qwen2, nemotron, qwen3-moe, moonshot) with 4 query heads a kv head.
 ATTN_HEAD_DIMS = (("dh64", (2, 1000, 8, 8, 64, 100)),
                   ("dh128", (2, 1000, 16, 4, 128, 100)))
+# The shapes the other served families give the attention kernel: (B, Sq, Sk,
+# H, KV, dh), causal, window, bidirectional prefix.  recurrentgemma-2b's
+# local attention (dh 256, MQA), whisper-base's encoder and cross-attention
+# over its 1,500 frames, internvl2-2b's image prefix, then a ragged input at
+# dh 256 whose window ends inside a 64-key tile, and the padded head dims:
+# every reduced config's 16 (ragged, window) and stablelm-12b's 160.  All
+# with q x ATTN_EDGE_Q_SCALE, so that a key too many or too few moves rows.
+ATTN_FAMILY_SHAPES = (
+    ("recurrentgemma", (8, 2048, 2048, 10, 1, 256), True, 2048, 0),
+    ("dh256_edge", (2, 1000, 1000, 10, 1, 256), True, 100, 0),
+    ("whisper_encoder", (8, 1500, 1500, 8, 8, 64), False, None, 0),
+    ("whisper_cross", (8, 2048, 1500, 8, 8, 64), False, None, 0),
+    ("internvl_prefix", (8, 2048, 2048, 16, 8, 128), True, None, 256),
+    ("dh16_padded", (2, 1000, 1000, 8, 2, 16), True, 100, 0),
+    ("dh160_padded", (8, 2048, 2048, 32, 8, 160), True, None, 0))
 SSD_SHAPE = (8, 2048, 32, 64, 128)
+# (P, N) the SSD wrapper zero-pads to (64, 128): the reduced mamba2-370m's
+# (16, 16) and the 100m preset's (16, 64), at B 8, S 2048 and the presets'
+# head counts.
+SSD_PAD_SHAPES = ((8, 2048, 8, 16, 16), (8, 2048, 64, 16, 64))
 # Mamba2's initialisation ranges (arXiv:2405.21060 and its reference code):
 # softplus(dt_bias) log-uniform in [1e-3, 0.1], A = -a uniform in [1, 16].
 # At the small end a head's state decays by exp(-0.064) over a 64-token
@@ -154,6 +200,15 @@ PLAIN_PATH_BAR = 1e-1
 # package's own check (tests/test_decode_consistency.py) allows 0.05
 # absolute on reduced-config logits whose max is about 0.57, i.e. ~9%.
 CONSIST_BAR = 1e-1
+# The moe family's prefill against decode: the same bar times the JAX
+# package's own allowance for capacity routing (tests/test_decode_consistency
+# .py allows 0.15 for moe against 0.05 for every other family).  A prefill
+# routes groups of 256 tokens with a capacity of 30 slots an expert and drops
+# the overflow, a decode step routes the batch's 2 tokens with 1 slot, so the
+# two drop different expert calls.  The plain path reads the same gap
+# (moonshot-v1-16b-a3b at 16 layers on an H100: 0.2379 through the kernels,
+# 0.2420 through the plain versions, chip_smoke.py, one run).
+MOE_CONSIST_BAR = 3e-1
 
 # Float32 operations per task row of csrc/dvfs_opt.cu, counted from the
 # source with every add, subtract, multiply, divide, square root, min/max,
@@ -343,17 +398,22 @@ def max_rel(got, want) -> float:
     return ((g - w).abs().max() / w.abs().max()).item()
 
 
-def attention_bound(B, H, KV, S, dh, causal, window) -> tuple:
-    """Least time for attention over these shapes: the larger of the
-    operations of the live (unmasked) score entries, 4 B H dh per entry at
-    the bf16 peak, and the bytes of q, k, v and o once each (bf16)."""
+def attention_bound(B, H, KV, S, dh, causal, window, sk=None,
+                    prefix=0) -> tuple:
+    """Least time for attention over these shapes (``sk`` keys, S of them
+    if None; keys below ``prefix`` visible to every query): the larger of
+    the operations of the live (unmasked) score entries, 4 B H dh per entry
+    at the bf16 peak, and the bytes of q, k, v and o once each (bf16)."""
+    sk = S if sk is None else sk
     live = 0
     for q in range(S):
-        hi = q if causal else S - 1
+        hi = min(q, sk - 1) if causal else sk - 1
         lo = max(0, q - window + 1) if window else 0
-        live += hi - lo + 1
+        band = max(0, hi - lo + 1)
+        pre = min(prefix, sk)
+        live += band + pre - max(0, min(pre - 1, hi) - lo + 1)
     t_ops = 4.0 * B * H * dh * live / PEAK_BF16_OPS * 1e3
-    t_bytes = 2.0 * B * S * dh * (2 * H + 2 * KV) / PEAK_BYTES * 1e3
+    t_bytes = 2.0 * B * dh * (2 * H * S + 2 * KV * sk) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -374,25 +434,52 @@ def ssd_bound(B, S, H, P, N, q) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sdpa_ms(torch, q, k, v, causal, window):
+def sdpa_mask(torch, Sq, Sk, causal, window, prefix, device):
+    """The boolean [Sq, Sk] mask of these bounds, or None where there is
+    none or ``is_causal`` says it."""
+    if not (window and window < Sk) and not prefix:
+        return None
+    pq = torch.arange(Sq, device=device)[:, None]
+    pk = torch.arange(Sk, device=device)[None, :]
+    mask = (pq - pk >= 0) if causal else torch.ones((Sq, Sk), dtype=torch.bool,
+                                                   device=device)
+    if window:
+        mask = mask & (pq - pk < window)
+    if prefix:
+        mask = mask | (pk < prefix)
+    return mask
+
+
+def sdpa_ms(torch, q, k, v, causal, window, prefix=0, backend=False):
     """Time of one ``scaled_dot_product_attention`` call on the same inputs
     and mask (GQA through ``enable_gqa``), or None if this torch has no such
-    call for them.  A yardstick only: the port never calls it."""
+    call for them; with ``backend``, (time, the backend's operator that the
+    dispatcher called, as ``torch.profiler`` shows it: flash, efficient,
+    cudnn or math attention).  A yardstick only: the port never calls it."""
     import torch.nn.functional as F
-    S = q.shape[1]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = None
-    if window is not None and window < S:
-        pos = torch.arange(S, device=q.device)
-        d = pos[:, None] - pos[None, :]
-        mask = (d < window) & (d >= 0 if causal else True)
-    try:
-        return event_ms(torch, lambda: F.scaled_dot_product_attention(
+    mask = sdpa_mask(torch, q.shape[1], k.shape[1], causal, window, prefix,
+                     q.device)
+
+    def call():
+        return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True), 20)
+            enable_gqa=True)
+
+    try:
+        ms = event_ms(torch, call, 20)
     except (RuntimeError, TypeError) as exc:
         print(f"  sdpa yardstick unavailable: {exc}", flush=True)
-        return None
+        return (None, None) if backend else None
+    if not backend:
+        return ms
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+        torch.cuda.synchronize()
+    ops = sorted({e.key for e in prof.key_averages()
+                  if e.key.startswith("aten::_scaled_dot_product")})
+    return ms, "+".join(ops) or "not seen by the profiler"
 
 
 def check_schedule(checks, res, n: int, name: str):
@@ -658,9 +745,12 @@ def main(argv=None) -> int:
 
     attn = attention_phase(checks, torch, dev, args.seed)
     ssd = ssd_phase(checks, torch, dev, args.seed)
-    serve = {kernel: serve_phase(checks, np, torch, dev, arch, kernel,
-                                 args.seed)
-             for arch, kernel in SERVE_ARCHS}
+    attn_family = family_attention_phase(checks, torch, dev, args.seed)
+    ssd_pad = ssd_pad_phase(checks, torch, dev, args.seed)
+    jobs = jobs_phase(checks, torch, dev)
+    serve = {arch: serve_phase(checks, np, torch, dev, arch, kernel, layers,
+                               args.seed)
+             for arch, kernel, layers in SERVE_ARCHS}
 
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
@@ -684,17 +774,19 @@ def main(argv=None) -> int:
         "device_ms_median_online": d_med,
         "plain_ms_median_online": p_med, "bound_ms_median_online": b_med,
         "launch_rows_online": rows_online, "day_device_ms": day_dvfs_ms,
-        "launch_rows_offline": rows_offline}, {
+        "launch_rows_offline": rows_offline, **jobs}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        **attn["serve"], **serve["flash_attention"],
+        **attn["serve"], **serve["h2o-danube-1.8b"],
         "long_8192": attn["long"], "edge": attn["edge"],
-        **{key: attn[key] for key, _ in ATTN_HEAD_DIMS}}, {
+        **{key: attn[key] for key, _ in ATTN_HEAD_DIMS}, **attn_family,
+        "serve": {arch: serve[arch] for arch, kernel, _ in SERVE_ARCHS
+                  if kernel == "flash_attention"}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        **ssd, **serve["ssd_scan"]}]}),
+        **ssd, **serve["mamba2-370m"], **ssd_pad}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -792,6 +884,204 @@ def attention_phase(checks, torch, dev, seed: int) -> dict:
         del q, k, v
     torch.cuda.empty_cache()
     return out
+
+
+def family_attention_phase(checks, torch, dev, seed: int) -> dict:
+    """The attention kernel against its plain version at the shapes of
+    ``ATTN_FAMILY_SHAPES``, with plain renderings of the faults each shape
+    can show, each timed beside the plain version, SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    out = {}
+    for key, (B, Sq, Sk, H, KV, dh), causal, window, prefix in (
+            ATTN_FAMILY_SHAPES):
+        q = torch.randn((B, Sq, H, dh), generator=gen, device=dev)
+        q = (q * ATTN_EDGE_Q_SCALE).to(torch.bfloat16)
+        k, v = (torch.randn((B, Sk, KV, dh), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+
+        def plain(q_, k_, v_, causal_=causal, window_=window, prefix_=prefix):
+            return fa.flash_attention_plain(q_, k_, v_, causal=causal_,
+                                            window=window_,
+                                            bidirectional_prefix=prefix_)
+
+        def kernel():
+            return fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, prefix=prefix)
+
+        got, want = kernel(), plain(q, k, v)
+        err = norm_err(got, want)
+        abs_err = (got.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(got.float()).all())
+        checks.expect(finite and err <= ATTN_BAR,
+                      f"attention {key}: finite {finite}, norm err {err} <= "
+                      f"{ATTN_BAR}")
+        # Plain renderings of the faults the shape can show, each against
+        # the right answer (see compare() in attention_phase for the shifted
+        # ones): the diagonal dropped and the window's edges where causal,
+        # the last key dropped and a causal mask where there is none, the
+        # prefix a key short or long or ignored.
+        faults = {}
+        if prefix:
+            for name, pre in (("prefix one key short", prefix - 1),
+                              ("prefix one key long", prefix + 1),
+                              ("prefix ignored", 0)):
+                faults[name] = norm_err(plain(q, k, v, prefix_=pre), want)
+        elif causal:
+            w1 = None if window is None else window - 1
+            faults["diagonal dropped"] = norm_err(
+                plain(q[:, 1:], k[:, :-1], v[:, :-1], window_=w1),
+                want[:, 1:])
+            if window is not None and window < Sq - 1:
+                faults["key past diagonal"] = norm_err(
+                    plain(q[:, :-1], k[:, 1:], v[:, 1:],
+                          window_=window + 1)[:, window:],
+                    want[:, window:-1])
+                faults["window+1"] = norm_err(plain(q, k, v,
+                                                    window_=window + 1), want)
+                faults["window-1"] = norm_err(plain(q, k, v,
+                                                    window_=window - 1), want)
+        else:
+            faults["last key dropped"] = norm_err(
+                plain(q, k[:, :-1], v[:, :-1]), want)
+            faults["causal mask taken"] = norm_err(
+                plain(q, k, v, causal_=True), want)
+        checks.expect(min(faults.values()) > ATTN_BAR,
+                      f"attention {key}: every fault's norm err {faults} "
+                      f"exceeds the bar {ATTN_BAR}")
+        del got, want
+        k_ms = event_ms(torch, kernel, 20)
+        p_ms = event_ms(torch, lambda: plain(q, k, v), 3)
+        lib_ms, backend = sdpa_ms(torch, q, k, v, causal, window, prefix,
+                                  backend=True)
+        b_ms, b_by = attention_bound(B, H, KV, Sq, dh, causal, window, Sk,
+                                     prefix)
+        out[key] = {"max_abs_err": abs_err, "norm_err": err, "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "library_kernel": backend,
+                    "fault_norm_errs": faults,
+                    "shape": [B, Sq, Sk, H, KV, dh,
+                              "causal" if causal else "non-causal", window,
+                              prefix, f"q x{ATTN_EDGE_Q_SCALE}"],
+                    "kernel_head_dim": fa.kernel_head_dim(dh)}
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms ({backend})"
+        print(f"phase attention kernel {key}: B {B} Sq {Sq} Sk {Sk} H {H} KV "
+              f"{KV} dh {dh} (kernel dh {fa.kernel_head_dim(dh)}) "
+              f"{'causal' if causal else 'non-causal'} window {window} "
+              f"prefix {prefix}, q x{ATTN_EDGE_Q_SCALE}: norm err {err:.3e}, "
+              f"max abs err {abs_err:.3e}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, sdpa {lib}, bound {b_ms:.4f} ms ({b_by}), "
+              f"kernel at {b_ms / k_ms:.1%} of the bound; plain renderings "
+              "of faults, norm err against the right answer: "
+              + ", ".join(f"{name} {e:.3e}" for name, e in faults.items()),
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssd_pad_phase(checks, torch, dev, seed: int) -> dict:
+    """The SSD kernel at (P, N) it runs zero-padded, against the plain
+    version (y and the final state), with the carry-dropped rendering; both
+    timed beside the bound of the real shape."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    out = {}
+    for B, S, H, P, N in SSD_PAD_SHAPES:
+        x = torch.randn((B, S, H, P), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        b, c = (torch.randn((B, S, N), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        dt0 = torch.logspace(math.log10(SSD_DT_RANGE[0]),
+                             math.log10(SSD_DT_RANGE[1]), H, device=dev)
+        dt = torch.nn.functional.softplus(
+            dt0 + torch.log(-torch.expm1(-dt0))
+            + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
+        a = -torch.linspace(*SSD_A_RANGE, H, device=dev)
+        y, fin = ss.ssd_scan_cuda(x, dt, a, b, c)
+        y_ref, fin_ref = ss.ssd_scan_plain(x, dt, a, b, c, 256)
+        errs = {"y": norm_err(y, y_ref), "final_state": norm_err(fin, fin_ref)}
+        finite = bool(torch.isfinite(y.float()).all()
+                      and torch.isfinite(fin).all())
+        shapes_ok = (tuple(y.shape) == (B, S, H, P)
+                     and tuple(fin.shape) == (B, H, P, N))
+        checks.expect(finite and shapes_ok and max(errs.values()) <= SSD_BAR,
+                      f"ssd ({P}, {N}): finite {finite}, shapes {shapes_ok}, "
+                      f"norm errs {errs} <= {SSD_BAR}")
+        q = ss.KERNEL_CHUNK
+        nc = S // q
+
+        def chunks(t):
+            return t.reshape(B * nc, q, *t.shape[2:])
+
+        y_drop, _ = ss.ssd_scan_plain(chunks(x), chunks(dt), a, chunks(b),
+                                      chunks(c), q)
+        fault = norm_err(y_drop.reshape(B, S, H, P), y_ref)
+        checks.expect(fault > SSD_BAR, f"ssd ({P}, {N}): carry-dropped "
+                      f"norm err {fault} exceeds the bar {SSD_BAR}")
+        k_ms = event_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, b, c), 20)
+        p_ms = event_ms(torch, lambda: ss.ssd_scan_plain(x, dt, a, b, c,
+                                                         256), 5)
+        b_ms, b_by = ssd_bound(B, S, H, P, N, q)
+        key = f"pad_p{P}_n{N}"
+        out[key] = {"norm_err": errs["y"],
+                    "final_state_norm_err": errs["final_state"],
+                    "max_abs_err": (y.float() - y_ref.float()).abs().max()
+                    .item(), "carry_dropped_norm_err": fault, "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None, "shape": [B, S, H, P, N]}
+        print(f"phase ssd kernel padded: B {B} S {S} H {H} P {P} N {N} (run "
+              f"at P {ss.KERNEL_P}, N {ss.KERNEL_N}): norm err y "
+              f"{errs['y']:.3e}, final state {errs['final_state']:.3e}; carry "
+              f"dropped {fault:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}) of the real shape, kernel "
+              f"at {b_ms / k_ms:.1%} of it", flush=True)
+        del x, b, c, dt, y, fin, y_ref, fin_ref, y_drop
+        torch.cuda.empty_cache()
+    return out
+
+
+def jobs_phase(checks, torch, dev) -> dict:
+    """``launch/energy_sched.py``'s day on the three-class fleet through the
+    ``dvfs_opt`` kernel against the same day through the torch grid+golden
+    solvers on the card: e_total within 2e-3, the same violations, Eq. 7
+    conservation and one live record per job on both."""
+    from repro_torch.core import solver_cache
+    from repro_torch.kernels import dvfs_opt
+    from repro_torch.launch import energy_sched
+
+    jobs, ts = energy_sched.day_jobs()
+    runs = {}
+    for use_kernel in (True, False):
+        solver_cache.GLOBAL_CACHE.clear()
+        dvfs_opt.dvfs_solve_cuda.launches = 0
+        t = time.perf_counter()
+        r_dvfs, r_base = energy_sched.schedule_day(
+            ts, classes=CLASSES, use_kernel=use_kernel, device=dev)
+        torch.cuda.synchronize()
+        runs[use_kernel] = (r_dvfs, r_base, time.perf_counter() - t,
+                            dvfs_opt.dvfs_solve_cuda.launches)
+        for name, res in (("dvfs", r_dvfs), ("no-DVFS", r_base)):
+            check_schedule(checks, res, len(jobs),
+                           f"jobs {name} use_kernel={use_kernel}")
+    (rk, bk, wk, launches), (rp, bp, wp, launches_plain) = runs[True], runs[False]
+    checks.expect(launches > 0 and launches_plain == 0,
+                  f"jobs: kernel launches {launches} (grid+golden run "
+                  f"{launches_plain})")
+    e_rel = abs(rk.e_total - rp.e_total) / rp.e_total
+    checks.expect(e_rel <= 2e-3, f"jobs: e_total rel {e_rel} <= 2e-3")
+    checks.expect(rk.violations == rp.violations,
+                  f"jobs: violations {rk.violations} vs {rp.violations}")
+    saving = 1.0 - rk.e_total / bk.e_total
+    print(f"phase jobs: {len(jobs)} LM jobs, classes {CLASSES}, kernel "
+          f"launches {launches}, e_total {rk.e_total:.6f} vs grid+golden "
+          f"{rp.e_total:.6f} (rel {e_rel:.3e}), violations {rk.violations}, "
+          f"total-energy saving against no DVFS {saving:.1%}, "
+          f"{wk:.3f} s vs {wp:.3f} s grid+golden (both with the no-DVFS "
+          f"baseline)", flush=True)
+    return {"launches_jobs": launches, "jobs_e_rel": e_rel}
 
 
 def ssd_phase(checks, torch, dev, seed: int) -> dict:
@@ -901,6 +1191,36 @@ def model_kernels(attn_fn, ssd_fn):
         attention.flash_attention_kernel, ssm.ssd_scan_kernel = saved
 
 
+@contextlib.contextmanager
+def moe_routing_replay(routes: list, record: bool):
+    """With ``record``, keep the router's decisions (gates, experts, buffer
+    positions, kept slots) of every ``moe_routing`` call in ``routes``;
+    without, hand the n-th call the n-th recorded decisions.  The router's
+    choices are discrete: where the kernel path and the plain path round an
+    activation differently, a token may take another expert or lose its
+    capacity slot, and its later layers then differ entirely.  Replaying
+    the kernel path's decisions on the plain path compares the two on the
+    same routing.  Does nothing for a model without MoE layers."""
+    from repro_torch.models import moe
+
+    inner = moe.moe_routing
+    replay = iter(routes)
+
+    def routing(params, x, cfg, *, group=moe.DEFAULT_GROUP):
+        gate, eidx, pos, keep, C, aux = inner(params, x, cfg, group=group)
+        if record:
+            routes.append((gate, eidx, pos, keep))
+        else:
+            gate, eidx, pos, keep = next(replay)
+        return gate, eidx, pos, keep, C, aux
+
+    moe.moe_routing = routing
+    try:
+        yield
+    finally:
+        moe.moe_routing = inner
+
+
 def paired_kernels(errs: list):
     """``model_kernels`` arguments that run each call through the kernel and
     through its plain version on the same inputs, append the normalised
@@ -908,11 +1228,12 @@ def paired_kernels(errs: list):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
-    def attn(q, k, v, *, causal, window=None, chunk=fa.DEFAULT_CHUNK):
-        got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                        chunk=chunk)
-        errs.append(norm_err(got, fa.flash_attention_plain(
-            q, k, v, causal=causal, window=window, chunk=chunk)))
+    def attn(q, k, v, *, causal, window=None, chunk=fa.DEFAULT_CHUNK,
+             bidirectional_prefix=0):
+        kw = dict(causal=causal, window=window, chunk=chunk,
+                  bidirectional_prefix=bidirectional_prefix)
+        got = fa.flash_attention_kernel(q, k, v, **kw)
+        errs.append(norm_err(got, fa.flash_attention_plain(q, k, v, **kw)))
         return got
 
     def ssd(x, dt, a, b, c, chunk, init_state=None):
@@ -928,19 +1249,22 @@ def prefill_vs_decode(torch, model, params, toks, vocab: int):
     """prefill(toks[:, :s0]), then decode steps fed the known tokens, against
     the last logits of prefill(toks[:, :s0 + j]) for j = 1..CONSIST_STEPS
     (the JAX package's tests/test_decode_consistency.py).  Returns the first
-    prefill's (logits, cache), the largest step error over max |logits|,
-    each step's error, and whether every logit was finite."""
+    prefill's (logits, cache as {path: tensor}), the largest step error over
+    max |logits|, each step's error, and whether every logit was finite."""
+    from repro_torch.launch.serve import prompt_batch
+
     s0 = toks.shape[1] - CONSIST_STEPS
     max_seq = toks.shape[1] + 8
-    logits, cache = model.prefill(params, {"tokens": toks[:, :s0]},
-                                  max_seq=max_seq)
-    first = (logits, {name: t.clone() for name, t in cache.items()})
+    logits, cache = model.prefill(
+        params, prompt_batch(model.cfg, toks[:, :s0]), max_seq=max_seq)
+    first = (logits, {name: t.clone() for name, t in _paths(cache)})
     errs, scale, finite = [], 0.0, bool(torch.isfinite(logits).all())
     for j in range(1, CONSIST_STEPS + 1):
         logits, cache = model.decode_step(params, cache, toks[:, s0 + j - 1],
                                           s0 + j - 1)
-        want, _ = model.prefill(params, {"tokens": toks[:, :s0 + j]},
-                                max_seq=max_seq)
+        want, _ = model.prefill(
+            params, prompt_batch(model.cfg, toks[:, :s0 + j]),
+            max_seq=max_seq)
         finite = finite and bool(torch.isfinite(logits).all()
                                  and torch.isfinite(want).all())
         real = want[:, :vocab]
@@ -949,21 +1273,44 @@ def prefill_vs_decode(torch, model, params, toks, vocab: int):
     return first, max(errs) / scale, errs, finite
 
 
-def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
+def kernel_calls(cfg, kernel: str) -> int:
+    """Calls of the family's kernel in one prefill: one per attention of an
+    attention layer (whisper's decoder layers attend twice, to themselves
+    and to the encoder), one per SSD layer."""
+    if kernel == "ssd_scan":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.block_types().count("attn")
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
                 seed: int) -> dict:
-    """``Server.run`` at full width with the launch counts read around it;
-    then, on the same weights, the prefill through the kernels against the
-    prefill through the plain versions, prefill against decode on both
-    paths, and a profiled window of decode steps.  Returns the family
-    kernel's launches in the run and the kernels-against-plain errors."""
+    """``Server.run`` at full width (cut to ``layers`` layers if given)
+    with the launch counts read around it; then, on the same weights, the
+    prefill through the kernels against the prefill through the plain
+    versions, prefill against decode on both paths, and a profiled window
+    of decode steps.  Returns the family kernel's launches in the run and
+    the kernels-against-plain errors."""
+    import dataclasses
+
     from repro_torch.kernels import dvfs_opt, flash_attention, ssd_scan
-    from repro_torch.launch.serve import Request, Server, preset_config
+    from repro_torch.launch.serve import (Request, Server, preset_config,
+                                          prompt_batch)
     from repro_torch.models.model import Model
 
     counters = {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
                 "flash_attention": flash_attention.flash_attention_cuda,
                 "ssd_scan": ssd_scan.ssd_scan_cuda}
     cfg = preset_config(arch, "full")
+    cut = ""
+    if layers is not None:
+        cut = (f", cut to {layers} of its {cfg.n_layers} layers at full "
+               "width")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    calls = kernel_calls(cfg, kernel)
     model = Model(cfg, device=dev)
     params = model.init(seed)
     n_params = sum(t.numel() for t in _tensors(params))
@@ -985,7 +1332,7 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
     stats = srv.run(requests(SERVE_GEN))
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {name: (cfg.n_layers if name == kernel else 0) for name in counters}
+    want = {name: (calls if name == kernel else 0) for name in counters}
     checks.expect(launches == want,
                   f"serve {arch}: launches {launches}, want {want}")
     checks.expect(stats["logits_finite"], f"serve {arch}: logits finite")
@@ -1005,21 +1352,26 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
     s0, V = SERVE_PROMPT - CONSIST_STEPS, cfg.vocab_size
     layer_errs = []
     with model_kernels(*paired_kernels(layer_errs)):
-        model.prefill(srv.params, {"tokens": toks[:, :s0]},
+        model.prefill(srv.params, prompt_batch(cfg, toks[:, :s0]),
                       max_seq=SERVE_PROMPT + 8)
     bar = ATTN_BAR if kernel == "flash_attention" else SSD_BAR
     worst = max(range(len(layer_errs)), key=layer_errs.__getitem__)
-    checks.expect(len(layer_errs) == cfg.n_layers
+    checks.expect(len(layer_errs) == calls
                   and layer_errs[worst] <= bar,
                   f"serve {arch}: {len(layer_errs)} layer calls, kernel "
                   f"against plain at the model's inputs, worst norm err "
                   f"{layer_errs[worst]} (layer {worst}) <= {bar}")
-    (k_logits, k_cache), rel, errs, finite = prefill_vs_decode(
-        torch, model, srv.params, toks, V)
+    routes = []
+    with moe_routing_replay(routes, record=True):
+        (k_logits, k_cache), rel, errs, finite = prefill_vs_decode(
+            torch, model, srv.params, toks, V)
     before = {name: fn.launches for name, fn in counters.items()}
-    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain):
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain), \
+            moe_routing_replay(routes, record=False):
         (p_logits, p_cache), p_rel, p_errs, p_finite = prefill_vs_decode(
             torch, model, srv.params, toks, V)
+    routed = bool(routes)
+    del routes
     plain_launches = {name: fn.launches - before[name]
                       for name, fn in counters.items()}
     checks.expect(not any(plain_launches.values()),
@@ -1032,9 +1384,10 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
     checks.expect(max(vs_plain.values()) <= PLAIN_PATH_BAR,
                   f"serve {arch}: prefill through the kernels against the "
                   f"plain versions, err/max {vs_plain} <= {PLAIN_PATH_BAR}")
-    checks.expect(finite and p_finite and rel <= CONSIST_BAR,
+    consist_bar = MOE_CONSIST_BAR if cfg.family == "moe" else CONSIST_BAR
+    checks.expect(finite and p_finite and rel <= consist_bar,
                   f"serve {arch}: prefill vs decode err/max {rel} <= "
-                  f"{CONSIST_BAR}, finite {finite} (plain path {p_finite})")
+                  f"{consist_bar}, finite {finite} (plain path {p_finite})")
     del k_cache, p_cache
 
     # Where prefill and decode time go, under torch.profiler (device
@@ -1045,8 +1398,9 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        logits, cache = model.prefill(srv.params, {"tokens": torch.from_numpy(
-            prompts).to(dev)}, max_seq=SERVE_PROMPT + SERVE_GEN + 8)
+        logits, cache = model.prefill(
+            srv.params, prompt_batch(cfg, torch.from_numpy(prompts).to(dev)),
+            max_seq=SERVE_PROMPT + SERVE_GEN + 8)
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - t
     split, p_top = device_split(prof.key_averages(), KERNEL_SYMBOLS[kernel])
@@ -1067,7 +1421,7 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
     n_kernels = sum(e.count for e in events if e.self_device_time_total > 0)
     top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in events[:5])
-    print(f"phase serve {arch}: {n_params} parameters (config count "
+    print(f"phase serve {arch}{cut}: {n_params} parameters (config count "
           f"{cfg.param_count()}), {SERVE_REQUESTS} requests x "
           f"{SERVE_PROMPT} prompt + {SERVE_GEN} new: prefill "
           f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s "
@@ -1076,11 +1430,13 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
           f"plain at each layer's inputs, norm err worst "
           f"{layer_errs[worst]:.3e} (layer {worst}), median "
           f"{sorted(layer_errs)[len(layer_errs) // 2]:.3e}; "
-          f"whole prefill through the kernels against the plain versions, "
+          f"whole prefill through the kernels against the plain versions"
+          f"{' (the kernel path routing replayed)' if routed else ''}, "
           f"err/max (norm err): "
           + ", ".join(f"{name} {e:.3e} ({vs_plain_norm[name]:.3e})"
                       for name, e in vs_plain.items())
-          + f"; prefill vs decode err/max {rel:.3e} (max abs err "
+          + f"; prefill vs decode err/max {rel:.3e} (bar {consist_bar}; max "
+          f"abs err "
           f"{max(errs):.4e}, per step {[f'{e:.3e}' for e in errs]}), plain "
           f"path {p_rel:.3e} (per step {[f'{e:.3e}' for e in p_errs]})",
           flush=True)
@@ -1097,7 +1453,7 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str,
           f"top: {top}", flush=True)
     del srv, model, cache, logits
     torch.cuda.empty_cache()
-    return {"launches": launches[kernel],
+    return {"launches": launches[kernel], "layers": cfg.n_layers,
             "layer_norm_err_worst": layer_errs[worst],
             "model_vs_plain_rel_errs": vs_plain,
             "model_vs_plain_norm_errs": vs_plain_norm,
@@ -1134,6 +1490,18 @@ def device_split(events, symbol: str) -> tuple:
     top = "; ".join(f"{key} {ms:.3f} ms x{n}"
                     for ms, n, key in sorted(rest, reverse=True)[:5])
     return {name: tuple(v) for name, v in split.items()}, top
+
+
+def _paths(tree, prefix=""):
+    """(path, tensor) pairs of a nested cache (dicts and tuples)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
 
 
 def _tensors(tree):

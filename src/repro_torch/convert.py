@@ -74,36 +74,71 @@ def task_config_from_arrays(fields: Fields) -> TaskConfig:
 def _tensors(tree, device):
     if isinstance(tree, Mapping):
         return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_tensors(v, device) for v in tree)
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def _unstack(tree, n: int, name: str) -> list:
+    """A tree of stacked ``[n, ...]`` leaves as a list of ``n`` trees."""
+    lengths = {len(v) for v in _leaves(tree)}
+    if lengths != {n}:
+        raise ValueError(f"{name}: layer stacks of lengths {sorted(lengths)}, "
+                         f"the config has {n}")
+
+    def one(sub, i):
+        if isinstance(sub, Mapping):
+            return {k: one(v, i) for k, v in sub.items()}
+        if isinstance(sub, tuple):
+            return tuple(one(v, i) for v in sub)
+        return sub[i]
+
+    return [one(tree, i) for i in range(n)]
+
+
+def _stacks(cfg: ModelConfig) -> dict:
+    """The stacked groups of the family's parameter tree and their depth."""
+    if cfg.family == "hybrid":
+        return {"layers": cfg.n_layers // len(cfg.block_pattern)}
+    if cfg.family == "encdec":
+        return {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
+    return {"layers": cfg.n_layers}
 
 
 def model_params_from_arrays(cfg: ModelConfig, tree: Mapping,
                              device="cpu") -> dict:
     """The port's parameters from the reference's ``Model.init`` pytree
     with numpy leaves (``jax.tree.map(np.asarray, params)``): the same keys
-    and values (copied, dtypes kept), with the stacked ``[L, ...]`` leaves of
-    ``tree["layers"]`` split into a list of ``L`` per-layer dicts."""
+    and values (copied, dtypes kept, tuples kept), with each stacked
+    ``[L, ...]`` group split into a list of ``L`` per-layer trees:
+    ``layers`` (for ``hybrid`` a list of pattern units, each a tuple of
+    layers) and the encdec's ``enc_layers``.  The hybrid's ``rem_layers``
+    tuple and ``enc_norm`` carry across as they are.  Raises on a key the
+    config's family does not have, and on stacks of the wrong depth."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    out = {k: _tensors(v, device) for k, v in tree.items() if k != "layers"}
-
-    def layer(sub, i):
-        if isinstance(sub, Mapping):
-            return {k: layer(v, i) for k, v in sub.items()}
-        return sub[i]
-
-    stacked = _tensors(tree["layers"], device)
-    n = {len(v) for v in _leaves(stacked)}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"layer stacks of lengths {sorted(n)}, config has "
-                         f"{cfg.n_layers} layers")
-    out["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+        raise ValueError(f"family {cfg.family!r} is none of {FAMILIES}")
+    stacks = _stacks(cfg)
+    known = {"embed", "head", "final_norm", *stacks}
+    if cfg.family == "hybrid":
+        known.add("rem_layers")
+    if cfg.family == "encdec":
+        known.add("enc_norm")
+    unknown = sorted(set(tree) - known)
+    if unknown:
+        raise ValueError(f"keys {unknown} are no part of a {cfg.family!r} "
+                         f"model's parameters {sorted(known)}")
+    out = {k: _tensors(v, device) for k, v in tree.items()}
+    for name, n in stacks.items():
+        out[name] = _unstack(out[name], n, name)
     return out
 
 
 def _leaves(tree):
     if isinstance(tree, Mapping):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

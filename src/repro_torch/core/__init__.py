@@ -28,16 +28,21 @@ Architecture (top to bottom)::
                         path: one [n, 16] task matrix per launch (per-row
                         interval bounds -> all classes in one launch)
 
+Beside them, ``jobs`` turns LM training/serving jobs into a ``TaskSet``
+(``launch/energy_sched.py`` schedules a day of them).
+
 Every solving entry point takes ``device=None`` (the CUDA card; it raises
 without one) or ``device="cpu"`` (the plain torch versions on the host).
 """
 
-from repro_torch.core import (bounds, cluster, dvfs, engine, machines, online,
-                              placement, scheduling, single_task, solver_cache,
-                              tasks)
+from repro_torch.core import (bounds, cluster, dvfs, engine, jobs, machines,
+                              online, placement, scheduling, single_task,
+                              solver_cache, tasks)
 from repro_torch.core.bounds import theoretical_bound
 from repro_torch.core.dvfs import NARROW, WIDE, DvfsParams, ScalingInterval
 from repro_torch.core.engine import ClusterEngine
+from repro_torch.core.jobs import (AcceleratorJob, RooflineTerms,
+                                   jobs_to_task_set, synth_job_stream)
 from repro_torch.core.machines import REGISTRY, MachineClass
 from repro_torch.core.online import schedule_online
 from repro_torch.core.scheduling import schedule_offline
@@ -48,9 +53,10 @@ from repro_torch.core.tasks import TaskSet, app_library, generate_offline, gener
 __all__ = [
     "DvfsParams", "ScalingInterval", "NARROW", "WIDE", "TaskSet",
     "ClusterEngine", "MachineClass", "REGISTRY",
+    "AcceleratorJob", "RooflineTerms", "jobs_to_task_set", "synth_job_stream",
     "app_library", "generate_offline", "generate_online",
     "configure_tasks", "solve_unconstrained", "solve_with_deadline",
     "schedule_offline", "schedule_online", "theoretical_bound",
-    "bounds", "cluster", "dvfs", "engine", "machines", "online",
+    "bounds", "cluster", "dvfs", "engine", "jobs", "machines", "online",
     "placement", "scheduling", "single_task", "solver_cache", "tasks",
 ]

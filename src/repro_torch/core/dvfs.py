@@ -275,3 +275,24 @@ TPU_V5E_CHIP = dict(
     p_idle=37.0,      # idle pair power (kept identical to the paper's setup)
     delta_on=90.0,    # turn on/off energy overhead (J), paper S5.1.2
 )
+
+
+def tpu_task_params(duration_s: float, delta: float, t0_frac: float = 0.1,
+                    chip: dict = TPU_V5E_CHIP) -> DvfsParams:
+    """Build paper-model parameters for an accelerator job (Python floats
+    in every field, as the reference builds them).
+
+    ``duration_s`` - default execution time t* at the (1,1,1) operating point.
+    ``delta``      - compute-boundness from the roofline analysis
+                     (T_compute / (T_compute + T_memory)).
+    ``t0_frac``    - fraction of t* that does not scale with frequency
+                     (data pipeline, host gaps).
+    """
+    p_peak = chip["p_peak"]
+    p0 = p_peak * chip["p0_frac"]
+    gamma = p_peak * chip["gamma_frac"]
+    c = p_peak - p0 - gamma
+    t0 = duration_s * t0_frac
+    big_d = duration_s - t0
+    return DvfsParams(p0=p0, gamma=gamma, c=c, big_d=big_d, delta=float(delta),
+                      t0=t0)

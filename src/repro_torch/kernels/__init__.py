@@ -2,8 +2,9 @@
 
 * ``dvfs_opt``        — the batched single-task DVFS optimum (Algorithm 1's
   per-task solve), ``csrc/dvfs_opt.cu``;
-* ``flash_attention`` — forward GQA attention, causal and/or windowed
-  (dense-family prefill), ``csrc/flash_attention.cu``;
+* ``flash_attention`` — forward GQA attention, causal and/or windowed, with
+  a bidirectional prefix (every attention prefill: dense, moe, hybrid,
+  encdec, vlm), ``csrc/flash_attention.cu``;
 * ``ssd_scan``        — the Mamba2 SSD chunked scan (ssm-family prefill),
   ``csrc/ssd_scan.cu``;
 * ``build``           — compiles ``csrc/*.cu`` with ``nvcc`` at first use;

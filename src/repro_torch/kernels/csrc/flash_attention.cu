@@ -11,7 +11,8 @@
 //         (batch, seq, head) element strides, a unit dh stride and 16-byte
 //         aligned rows; query head h reads kv head h / (H / KV).
 // Output: o with q's shape and strides, bf16.
-// dh is 64, 80 or 128, each its own instantiation, taken natively.
+// dh is 64, 80, 128 or 256, each its own instantiation, taken natively;
+// the Python wrapper zero-pads any other dh up to 256 to the next of them.
 //
 // What bounds it on an H100: operations.  At the h2o-danube-1.8b prefill
 // shape (B 8, S 2048, H 32, KV 8, dh 80, causal) the live score entries
@@ -31,7 +32,12 @@
 //   producer's one thread loads Q once and keeps 128-key K/V tiles in
 //   flight with TMA (cp.async.bulk.tensor, 4-D maps over the strided
 //   tensors) into a three-stage ring guarded by full/empty mbarriers, so
-//   the next tiles arrive while the current one is multiplied.  A tile is
+//   the next tiles arrive while the current one is multiplied.
+// - At dh 256 (Cfg<256>) the O accumulator alone is 128 registers a thread
+//   and a 128-key tile 64 KB, so a block is one consumer warpgroup of 64
+//   query rows and the producer (5 warps, up to 255 registers a thread),
+//   the tiles hold 64 keys, and Q plus a three-stage ring is 224 KB.  P V
+//   runs as two n128 products, one for each half of the dh columns.  A tile is
 //   stored as dh/16 boxes of [128 rows, 16 columns] with the 32-byte
 //   swizzle: every head dim is a whole number of them (dh 80 rows are 160
 //   bytes, wider than a 128-byte swizzle box), and wgmma reads them without
@@ -40,10 +46,17 @@
 //   measured no faster on the card.  The group's K/V stays in L2.)
 // - The softmax runs in base 2 (scale * log2(e) folded into one FMA, then
 //   ex2.approx), and the mask is applied only on tiles that the causal
-//   diagonal, the window's lower edge or the ragged end Sk cut, classified
-//   per warpgroup in integer arithmetic; a warpgroup skips a tile that holds
-//   none of its live keys.  The kv loop runs only over the tiles between
-//   the causal and window bounds of the block.
+//   diagonal, the window's lower edge, the prefix's edge or the ragged end
+//   Sk cut, classified per warpgroup in integer arithmetic; a warpgroup
+//   skips a tile that holds none of its live keys.  The kv loop runs only
+//   over the tiles between the causal and window bounds of the block.
+// - A bidirectional prefix (the vlm family's image tokens): a key at column
+//   col < prefix is visible to every query row, whatever the causal and
+//   window bounds say, so a block's key range runs to at least
+//   min(prefix, Sk) and, with a window, starts at key 0.  The prefix is a
+//   template flag, so a launch without one runs no prefix test at all
+//   (made at run time, the tests slowed the dh 64 and 80 kernels by some
+//   8% on an H100; attention_ab.py reads it).
 // - Causal blocks carry from 1 to Sk/128 tiles; the heaviest (last) query
 //   blocks are launched first.
 //
@@ -51,7 +64,8 @@
 // cudaGetDriverEntryPoint, so the library links no more than cudart.
 //
 // Semantics follow the model's blockwise_attention: scores scaled by the
-// real dh^-0.5 in f32, masked entries set to -1e30 (a row masked so far
+// real dh^-0.5 in f32 (the wrapper passes it: a padded dh does not change
+// it), masked entries set to -1e30 (a row masked so far
 // keeps m = -1e30; what it summed is wiped by the first real maximum), p
 // rounded to bf16 for the PV product while l sums the f32 p, and the
 // output divided by max(l, 1e-30).
@@ -64,12 +78,8 @@
 
 namespace {
 
-constexpr int kBq = 128;        // query rows of a block (64 per warpgroup)
-constexpr int kBk = 128;        // key rows of a K/V tile
 constexpr int kBox = 16;        // columns of one TMA box (32 bytes)
 constexpr int kStages = 3;      // K/V ring depth
-constexpr int kConsumerWarps = 8;
-constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + the producer warp
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -80,15 +90,28 @@ struct Params {
   int H, KV, Sq, Sk;
   int64_t o_sb, o_ss, o_sh;
   int causal, window;  // window 0: none
+  int prefix;          // keys < prefix are visible to every row; 0: none
   float scale_log2;    // dh^-0.5 * log2(e)
+};
+
+// Tiles of one head dim: consumer warpgroups (64 query rows each) and the
+// key rows of a K/V tile.  dh 256 takes one warpgroup and 64-key tiles (see
+// the note at the top).
+template <int DH>
+struct Cfg {
+  static constexpr int kGroups = DH > 128 ? 1 : 2;
+  static constexpr int kBq = 64 * kGroups;        // query rows of a block
+  static constexpr int kBk = DH > 128 ? 64 : 128;  // key rows of a tile
+  static constexpr int kConsumerWarps = 4 * kGroups;
+  static constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + producer
 };
 
 // Shared-memory layout of one block, in bytes from a 1024-aligned base.
 template <int DH>
 struct Smem {
   static constexpr int kQ = 0;                            // [DH/16][kBq][16]
-  static constexpr int kTile = kBk * DH * 2;              // one K or V tile
-  static constexpr int kK = kQ + kBq * DH * 2;            // [kStages] tiles
+  static constexpr int kTile = Cfg<DH>::kBk * DH * 2;     // one K or V tile
+  static constexpr int kK = kQ + Cfg<DH>::kBq * DH * 2;   // [kStages] tiles
   static constexpr int kV = kK + kStages * kTile;         // [kStages] tiles
   static constexpr int kBar = kV + kStages * kTile;       // mbarriers
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
@@ -220,6 +243,34 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64] with A and B in shared memory
+// (descriptors da, db), both K-major; accumulate 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S = Q K^T over one k-step for a tile of BK keys.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (BK == 64) wgmma_ss_n64(d, da, db, accumulate);
+  if constexpr (BK == 128) wgmma_ss_n128(d, da, db, accumulate);
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64] with A in registers (the
 // m16n8k16 A fragment, one 16-row slab per warp) and B in shared memory,
 // MN-major (the transpose flag set).
@@ -296,24 +347,35 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O += P V over one k-step.  db addresses the V tile's first column box;
+// at dh 256 the second half of the columns starts `half` bytes further (8
+// boxes) and its accumulators are o[64..127], the n128 layout's own order.
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         uint32_t half) {
   if constexpr (DH == 64) wgmma_rs_n64_tb(d, a, db);
   if constexpr (DH == 80) wgmma_rs_n80_tb(d, a, db);
   if constexpr (DH == 128) wgmma_rs_n128_tb(d, a, db);
+  if constexpr (DH == 256) {
+    wgmma_rs_n128_tb(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+    wgmma_rs_n128_tb(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                     db + (half >> 4));
+  }
 }
 
 // ---- the kernel -----------------------------------------------------------
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int DH, bool kPrefix>
+__global__ void __launch_bounds__(Cfg<DH>::kThreads, 1)
     flash_fwd(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Smem<DH>;
+  constexpr int kBq = Cfg<DH>::kBq, kBk = Cfg<DH>::kBk;
+  constexpr int kConsumerWarps = Cfg<DH>::kConsumerWarps;
   constexpr int kChunks = DH / kBox;     // k-steps of S = Q K^T
-  constexpr int kBoxBytes = kBk * kBox * 2;  // one [128, 16] box
+  constexpr int kBoxBytes = kBk * kBox * 2;  // one [kBk, 16] box
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -326,10 +388,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_lo = (gridDim.x - 1 - blockIdx.x) * kBq;  // heaviest first
   const int q_hi = min(q_lo + kBq, p.Sq);               // exclusive
   // Key range of the block: causal keys <= q_hi - 1, window keys >=
-  // q_lo - window + 1; whole tiles outside it are never loaded.
+  // q_lo - window + 1, and the prefix's keys [0, prefix) for every row;
+  // whole tiles outside it are never loaded.
   int kv_end = p.Sk;
-  if (p.causal) kv_end = min(kv_end, q_hi);
-  const int kv_begin = p.window > 0 ? max(0, q_lo - p.window + 1) : 0;
+  if (p.causal) kv_end = min(kv_end, kPrefix ? max(q_hi, p.prefix) : q_hi);
+  const int kv_begin =
+      p.window > 0 && !kPrefix ? max(0, q_lo - p.window + 1) : 0;
   const int kb_begin = kv_begin / kBk;
   const int kb_end = (kv_end + kBk - 1) / kBk;
 
@@ -394,21 +458,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int k_lo = kb * kBk;
     mbar_wait(full0 + 8 * stage, phase);
     // Does this warpgroup see any live key of the tile, and must it mask?
-    const bool live = wq_lo < wq_hi && !(p.causal && k_lo > wq_hi - 1) &&
-                      !(p.window > 0 && k_lo + kBk - 1 < wq_lo - p.window + 1);
+    // A tile that holds a prefix key is live for every row; one inside the
+    // prefix is cut only by Sk, one across the prefix's edge always masks.
+    const bool has_prefix = kPrefix && k_lo < p.prefix;
+    const bool in_prefix = kPrefix && k_lo + kBk <= p.prefix;
+    const bool live =
+        wq_lo < wq_hi &&
+        (has_prefix ||
+         (!(p.causal && k_lo > wq_hi - 1) &&
+          !(p.window > 0 && k_lo + kBk - 1 < wq_lo - p.window + 1)));
     if (live) {
-      const bool masked = (p.causal && k_lo + kBk - 1 > wq_lo) ||
-                          (p.window > 0 && wq_hi - 1 - k_lo >= p.window) ||
-                          k_lo + kBk > p.Sk;
+      const bool masked =
+          k_lo + kBk > p.Sk ||
+          (!in_prefix && (has_prefix || (p.causal && k_lo + kBk - 1 > wq_lo) ||
+                          (p.window > 0 && wq_hi - 1 - k_lo >= p.window)));
       const uint32_t kt = sk + stage * L::kTile, vt = sv + stage * L::kTile;
 
       // S = Q K^T: dh/16 k-steps, each one [64, 16] Q box against one
-      // [128, 16] K box.
+      // [kBk, 16] K box.
       float s[kBk / 2];
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < kChunks; ++c)
-        wgmma_ss_n128(s, desc_sw32(q_rows + c * kBq * kBox * 2, 1, 16),
+        wgmma_qk<kBk>(s, desc_sw32(q_rows + c * kBq * kBox * 2, 1, 16),
                       desc_sw32(kt + c * kBoxBytes, 1, 16), c > 0);
       wgmma_commit();
       wgmma_wait_all();
@@ -422,8 +494,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int row = e < 2 ? r0 : r1;
             const int col = k_lo + j * 8 + 2 * t + (e & 1);
             bool ok = col < p.Sk;
-            if (p.causal) ok = ok && row >= col;
-            if (p.window > 0) ok = ok && row - col < p.window;
+            if (!kPrefix || col >= p.prefix) {
+              if (p.causal) ok = ok && row >= col;
+              if (p.window > 0) ok = ok && row - col < p.window;
+            }
             if (!ok) s[4 * j + e] = kNegInf;
           }
         }
@@ -482,7 +556,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kBk / 16; ++kk)
         wgmma_pv<DH>(o, pf[kk],
-                     desc_sw32(vt + kk * 16 * kBox * 2, kBoxBytes >> 4, 16));
+                     desc_sw32(vt + kk * 16 * kBox * 2, kBoxBytes >> 4, 16),
+                     8 * kBoxBytes);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -557,65 +632,72 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor maps of q, k, v (boxes of Cfg<DH>'s query and key rows), then
+// the launch.  shape and strides as flash_attention_launch takes them.
 template <int DH>
-cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, const Params& p, int B,
+cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
+                   const void* v, const int64_t* shape,
+                   const int64_t* strides, const Params& p,
                    cudaStream_t stream) {
+  const int B = static_cast<int>(shape[0]);
+  CUtensorMap tq, tk, tv;
+  if (!encode(fn, &tq, q, B, p.Sq, p.H, DH, strides[0], strides[1],
+              strides[2], Cfg<DH>::kBq) ||
+      !encode(fn, &tk, k, B, p.Sk, p.KV, DH, strides[3], strides[4],
+              strides[5], Cfg<DH>::kBk) ||
+      !encode(fn, &tv, v, B, p.Sk, p.KV, DH, strides[6], strides[7],
+              strides[8], Cfg<DH>::kBk))
+    return cudaErrorInvalidValue;
   const int bytes = Smem<DH>::kBytes;
+  auto kernel = p.prefix > 0 ? flash_fwd<DH, true> : flash_fwd<DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBq - 1) / kBq, p.H, B);
-  flash_fwd<DH><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, p);
+  const dim3 grid((p.Sq + Cfg<DH>::kBq - 1) / Cfg<DH>::kBq, p.H, B);
+  kernel<<<grid, Cfg<DH>::kThreads, bytes, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // shape: B, H, KV, Sq, Sk, dh.  strides: (batch, seq, head) element strides
-// of q, k, v, o in that order.  Launches on `stream`; returns
-// cudaGetLastError() as an int (cudaErrorInvalidValue for a head dim it was
-// not compiled for or a tensor map the driver refuses,
-// cudaErrorNotSupported without cuTensorMapEncodeTiled).
+// of q, k, v, o in that order.  window 0: none; prefix 0: none.  Launches
+// on `stream`; returns cudaGetLastError() as an int (cudaErrorInvalidValue
+// for a head dim it was not compiled for or a tensor map the driver
+// refuses, cudaErrorNotSupported without cuTensorMapEncodeTiled).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const int64_t* shape,
                                       const int64_t* strides, int causal,
-                                      int window, float scale, void* stream) {
-  const int B = static_cast<int>(shape[0]), H = static_cast<int>(shape[1]);
-  const int KV = static_cast<int>(shape[2]);
-  const int Sq = static_cast<int>(shape[3]), Sk = static_cast<int>(shape[4]);
+                                      int window, int prefix, float scale,
+                                      void* stream) {
   const int dh = static_cast<int>(shape[5]);
-  if (dh != 64 && dh != 80 && dh != 128)
+  if (dh != 64 && dh != 80 && dh != 128 && dh != 256)
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q, B, Sq, H, dh, strides[0], strides[1], strides[2],
-              kBq) ||
-      !encode(fn, &tk, k, B, Sk, KV, dh, strides[3], strides[4], strides[5],
-              kBk) ||
-      !encode(fn, &tv, v, B, Sk, KV, dh, strides[6], strides[7], strides[8],
-              kBk))
-    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = static_cast<bf16*>(o);
-  p.H = H;
-  p.KV = KV;
-  p.Sq = Sq;
-  p.Sk = Sk;
+  p.H = static_cast<int>(shape[1]);
+  p.KV = static_cast<int>(shape[2]);
+  p.Sq = static_cast<int>(shape[3]);
+  p.Sk = static_cast<int>(shape[4]);
   p.o_sb = strides[9];
   p.o_ss = strides[10];
   p.o_sh = strides[11];
   p.causal = causal;
   p.window = window;
+  p.prefix = prefix;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (dh) {
-    case 64: return static_cast<int>(launch<64>(tq, tk, tv, p, B, s));
-    case 80: return static_cast<int>(launch<80>(tq, tk, tv, p, B, s));
-    default: return static_cast<int>(launch<128>(tq, tk, tv, p, B, s));
+    case 64: err = launch<64>(fn, q, k, v, shape, strides, p, s); break;
+    case 80: err = launch<80>(fn, q, k, v, shape, strides, p, s); break;
+    case 128: err = launch<128>(fn, q, k, v, shape, strides, p, s); break;
+    default: err = launch<256>(fn, q, k, v, shape, strides, p, s); break;
   }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,7 +1,9 @@
-"""Forward GQA attention (causal and/or sliding window) as a CUDA kernel.
+"""Forward GQA attention (causal and/or sliding window, with an optional
+bidirectional prefix) as a CUDA kernel.
 
-Prefill hot spot of the dense family: ``models/attention.py::
-blockwise_attention`` calls :func:`flash_attention_kernel` once per layer.
+Prefill hot spot of every attention family: ``models/attention.py::
+blockwise_attention`` calls :func:`flash_attention_kernel` once per
+attention layer (self-attention, whisper's encoder and cross-attention).
 The hand-written kernel in ``csrc/flash_attention.cu`` replaces the JAX
 package's Pallas TPU kernel ``repro/kernels/flash_attention.py::_kernel``,
 launched there by ``flash_attention``.
@@ -13,7 +15,9 @@ views of the JAX layout ``[B, H, S, dh]`` without a copy.
 
 The function, on every path: scores ``q kᵀ`` with float32 accumulation,
 times the real ``dh ** -0.5``; masked entries (above the diagonal, outside
-the window, keys past ``Sk``) set to ``NEG_INF = -1e30``; a running max and
+the window, keys past ``Sk``) set to ``NEG_INF = -1e30``, except that a key
+below ``bidirectional_prefix`` is visible to every query (the vlm family's
+image tokens attend to each other both ways); a running max and
 sum in float32 across key blocks; ``p`` rounded to the matmul dtype before
 ``p v``; the output divided by ``max(l, 1e-30)``, in the input dtype.
 
@@ -25,7 +29,12 @@ Three functions compute it:
   reference casts them, float32 where a caller passes float32 as the
   Pallas body computes);
 * :func:`flash_attention_cuda` — the CUDA kernel's wrapper, bfloat16 CUDA
-  tensors only; it counts its launches in ``flash_attention_cuda.launches``;
+  tensors only; the kernel is compiled for :data:`HEAD_DIMS`, and the
+  wrapper zero-pads any other dh up to 256 to the next of them
+  (:func:`kernel_head_dim`, :func:`pad_head_dim`): zero columns of q and k
+  add nothing to a score, zero columns of v give zero output columns,
+  which it slices away, and it passes the scale of the real dh.  It counts
+  its launches in ``flash_attention_cuda.launches``;
 * :func:`flash_attention_kernel` — the dispatcher: a CPU tensor goes to the
   plain version, a CUDA tensor to the kernel (or an error).
 """
@@ -41,8 +50,26 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 DEFAULT_CHUNK = 1024
-#: head dims the CUDA kernel is compiled for (multiples of 16, no padding)
-HEAD_DIMS = (64, 80, 128)
+#: head dims the CUDA kernel is compiled for; any other dh up to 256 is
+#: zero-padded to the next of them by the wrapper
+HEAD_DIMS = (64, 80, 128, 256)
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The compiled head dim that ``dh`` runs at: the least of
+    :data:`HEAD_DIMS` not below it.  Raises above 256."""
+    for d in HEAD_DIMS:
+        if dh <= d:
+            return d
+    raise ValueError(f"flash_attention_cuda: head dim {dh} above the largest "
+                     f"compiled one, {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """``t`` [..., d] with zero columns appended up to ``dh`` (``t`` itself
+    when ``d == dh``)."""
+    extra = dh - t.shape[-1]
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
 
 
 def pick_chunk(s: int, chunk: int) -> Tuple[int, int]:
@@ -66,15 +93,19 @@ def pick_chunk(s: int, chunk: int) -> Tuple[int, int]:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, window: Optional[int] = None,
-                          chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                          chunk: int = DEFAULT_CHUNK,
+                          bidirectional_prefix: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Block attention with static block skipping (the reference's
-    ``blockwise_attention``, ``models/attention.py:96-178``, without the
-    vlm family's bidirectional prefix, which is not ported).
+    ``blockwise_attention``, ``models/attention.py:96-178``).
 
     q: [B, Sq, H, dh]; k/v: [B, Sk, KV, dh].  Both are split into chunks;
     for each q chunk only the causally / window-wise reachable kv chunks
-    are computed, combined by running-max softmax rescaling.  Returns
-    [B, Sq, H, dh] in q's dtype."""
+    are computed, combined by running-max softmax rescaling.  Positions
+    below ``bidirectional_prefix`` attend to each other both ways (and,
+    under a window, stay visible to every query); as in the reference the
+    prefix must fit the first chunk.  ``scale`` defaults to ``dh ** -0.5``.
+    Returns [B, Sq, H, dh] in q's dtype."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -88,7 +119,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad - Sk))
     kv_limit = Sk if sk_pad != Sk else None   # mask padded keys
     nq, nk = sq_pad // cq, sk_pad // ck
-    scale = dh ** -0.5
+    prefix = bidirectional_prefix
+    if not (prefix <= cq or nq == 1):
+        raise ValueError(f"bidirectional prefix {prefix} must fit one chunk "
+                         f"({cq})")
+    if scale is None:
+        scale = dh ** -0.5
     dev = q.device
     # Matmul inputs rounded to cd, products summed in float32.
     qg = q.reshape(B, nq, cq, KV, g, dh).to(cd).float()
@@ -107,15 +143,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_lo, k_hi = kj * ck, (kj + 1) * ck
             if causal and k_lo > q_hi - 1:
                 continue  # strictly-upper block: skipped
-            if window is not None and k_hi - 1 < q_lo - window + 1:
+            if (window is not None and k_hi - 1 < q_lo - window + 1
+                    and not (prefix and k_lo < prefix)):
                 continue  # outside the sliding window: skipped
             k_pos = torch.arange(k_lo, k_hi, device=dev)
             s = torch.einsum("bqkgd,bckd->bkgqc", qg[:, qi], kc[:, kj]) * scale
             mask = None
             if causal and k_hi > q_lo:  # diagonal-crossing block
                 mask = q_pos[:, None] >= k_pos[None, :]
+                if prefix:
+                    mask = mask | ((q_pos[:, None] < prefix)
+                                   & (k_pos[None, :] < prefix))
             if window is not None and k_lo <= q_hi - window:
                 wmask = q_pos[:, None] - k_pos[None, :] < window
+                if prefix:
+                    wmask = wmask | (k_pos[None, :] < prefix)
                 mask = wmask if mask is None else (mask & wmask)
             if kv_limit is not None and k_hi > kv_limit:
                 vmask = (k_pos[None, :] < kv_limit).expand(cq, ck)
@@ -147,7 +189,8 @@ def _library():
         lib.flash_attention_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -178,14 +221,15 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device):
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         *, causal: bool, window: Optional[int] = None,
+                         prefix: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on bfloat16 CUDA tensors q
     ``[B, Sq, H, dh]``, k/v ``[B, Sk, KV, dh]`` (any strides with a unit
-    head-dim stride).  Returns the output with q's shape and strides,
-    still being computed on the current stream.  Builds the kernel with
-    ``nvcc`` at first use.  Raises on any other input, and if the launch is
-    refused."""
+    head-dim stride), keys below ``prefix`` visible to every query.  Returns
+    the output with q's shape (q's strides where dh is compiled, else a
+    slice of the padded output), still being computed on the current
+    stream.  Builds the kernel with ``nvcc`` at first use.  Raises on any
+    other input, a dh above 256 included, and if the launch is refused."""
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
         raise ValueError("flash_attention_cuda takes CUDA tensors; q is on "
                          f"{getattr(q, 'device', type(q).__name__)}")
@@ -200,30 +244,32 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention_cuda: {H} query heads over {KV} "
                          "kv heads")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
+    dk = kernel_head_dim(dh)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
+    if prefix < 0:
+        raise ValueError(f"flash_attention_cuda: prefix {prefix} < 0")
+    scale = float(dh ** -0.5)     # the real dh's, whatever the padding
+    q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     out = torch.empty_like(q)   # q's strides where q is dense
     if out.numel() == 0:
-        return out
+        return out[..., :dh]
     lib = _library()
-    shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dh)
+    shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dk)
     strides = (ctypes.c_int64 * 12)(
         *(s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1),
                                               t.stride(2))))
-    scale = float(dh ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), shape,
-            strides, int(bool(causal)), int(window or 0), scale, stream)
+            strides, int(bool(causal)), int(window or 0), int(prefix), scale,
+            stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     flash_attention_cuda.launches += 1
-    return out
+    return out[..., :dh] if dk != dh else out
 
 
 flash_attention_cuda.launches = 0
@@ -231,14 +277,17 @@ flash_attention_cuda.launches = 0
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: Optional[int] = None,
-                           chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                           chunk: int = DEFAULT_CHUNK,
+                           bidirectional_prefix: int = 0) -> torch.Tensor:
     """Attention in the model layout on q's device: a CPU tensor is
     computed by :func:`flash_attention_plain` (with ``chunk``), a CUDA
-    tensor by the CUDA kernel (its own 64 x 64 tiles; ``chunk`` does not
-    change the function)."""
+    tensor by the CUDA kernel (its own tiles; ``chunk`` does not change the
+    function)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     chunk=chunk)
+                                     chunk=chunk,
+                                     bidirectional_prefix=bidirectional_prefix)
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    prefix=bidirectional_prefix)
     raise ValueError(f"no flash_attention for device {q.device}")

@@ -45,9 +45,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Flash attention in the JAX layout: q ``[B, H, S, dh]``, k/v
     ``[B, KV, Sk, dh]`` (tensors or arrays) -> ``[B, H, S, dh]`` on
     ``device``.  The kernel reads the layout through strides (transposed
-    views, no copy); it takes dh as it is and scales by the real
-    ``dh ** -0.5``, where the reference's wrapper pads dh to 128 for the
-    MXU and rescales q."""
+    views, no copy) where dh is one it is compiled for (64, 80, 128, 256);
+    another dh up to 256 is zero-padded to the next of them, and every dh
+    is scaled by the real ``dh ** -0.5``, where the reference's wrapper
+    pads dh to 128 for the MXU and rescales q."""
     device = resolve_device(device)
     q, k, v = (torch.as_tensor(t).to(device) for t in (q, k, v))
     out = flash_attention_kernel(q.transpose(1, 2), k.transpose(1, 2),

@@ -26,8 +26,12 @@ Three functions compute it:
 
 * :func:`ssd_scan_plain` — ``ssd_chunked`` in plain torch (any device);
 * :func:`ssd_scan_cuda` — the CUDA kernel's wrapper, CUDA tensors only
-  (x/b/c bfloat16, dt/a float32); it counts its launches in
-  ``ssd_scan_cuda.launches``;
+  (x/b/c bfloat16, dt/a float32).  The kernel is compiled for
+  (P, N) = (64, 128); the wrapper zero-pads a smaller P or N up to it
+  (:func:`pad_shape`) and slices y and the final state back, which is
+  exact: zero columns of x give zero rows of the state and of y, and zero
+  columns of b and c add nothing to C Bᵀ or to C s.  It counts its launches
+  in ``ssd_scan_cuda.launches``;
 * :func:`ssd_scan_kernel` — the dispatcher: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel (or an error).
 """
@@ -43,8 +47,29 @@ from repro_torch.kernels import build
 
 #: the CUDA kernel's chunk length (csrc kQ)
 KERNEL_CHUNK = 64
-#: (P, N) pairs the CUDA kernel is compiled for: mamba2's head dim and state
-SHAPES = ((64, 128),)
+#: (P, N) the CUDA kernel is compiled for, mamba2's head dim and state; a
+#: smaller P or N is zero-padded up to it, a larger one refused
+KERNEL_P, KERNEL_N = 64, 128
+
+
+def pad_shape(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              init_state: Optional[torch.Tensor] = None):
+    """x padded with zero columns to P = :data:`KERNEL_P`, b and c to
+    N = :data:`KERNEL_N`, and ``init_state`` [B, H, P, N] with zeros to
+    both (each unchanged where it already has the size).  Raises where P or
+    N is larger."""
+    P, N = x.shape[-1], b.shape[-1]
+    if P > KERNEL_P or N > KERNEL_N:
+        raise ValueError(f"ssd_scan_cuda: (P, N) = {(P, N)} above the compiled "
+                         f"{(KERNEL_P, KERNEL_N)}")
+    pad = torch.nn.functional.pad
+    if P < KERNEL_P:
+        x = pad(x, (0, KERNEL_P - P))
+    if N < KERNEL_N:
+        b, c = pad(b, (0, KERNEL_N - N)), pad(c, (0, KERNEL_N - N))
+    if init_state is not None and (P, N) != (KERNEL_P, KERNEL_N):
+        init_state = pad(init_state, (0, KERNEL_N - N, 0, KERNEL_P - P))
+    return x, b, c, init_state
 
 
 def segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -169,10 +194,12 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Launch ``csrc/ssd_scan.cu``: x ``[B, S, H, P]`` and b/c ``[B, S, N]``
     bfloat16 (any strides with a unit last stride: the model passes slices
     of the conv output), dt ``[B, S, H]`` and a ``[H]`` float32,
-    ``init_state`` ``[B, H, P, N]`` float32 or None (zeros).  Returns
-    ``(y [B, S, H, P] bf16, final_state [B, H, P, N] f32)``, still being
-    computed on the current stream.  Builds the kernel with ``nvcc`` at
-    first use.  Raises on any other input, and if the launch is refused."""
+    ``init_state`` ``[B, H, P, N]`` float32 or None (zeros); P up to 64 and
+    N up to 128 (smaller ones run zero-padded).  Returns ``(y [B, S, H, P]
+    bf16, final_state [B, H, P, N] f32)``, still being computed on the
+    current stream (slices of the padded outputs where P or N was padded).
+    Builds the kernel with ``nvcc`` at first use.  Raises on any other
+    input, and if the launch is refused."""
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
         raise ValueError("ssd_scan_cuda takes CUDA tensors; x is on "
                          f"{getattr(x, 'device', type(x).__name__)}")
@@ -190,22 +217,23 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"ssd_scan_cuda: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
             f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)} do not "
             "form x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N]")
-    if (P, N) not in SHAPES:
-        raise ValueError(f"ssd_scan_cuda: (P, N) = {(P, N)} not in {SHAPES}")
     if init_state is not None:
         _check("init_state", init_state, dev, torch.float32, 4, False)
         if init_state.shape != (B, H, P, N):
             raise ValueError(f"ssd_scan_cuda: init_state {tuple(init_state.shape)}"
                              f" is not [B, H, P, N] = {(B, H, P, N)}")
+    x, b, c, init_state = pad_shape(x, b, c, init_state)
+    if init_state is not None:
         init_state = init_state.contiguous()
-    y = torch.empty((B, S, H, P), dtype=torch.bfloat16, device=dev)
-    final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    y = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=dev)
+    final = torch.empty((B, H, KERNEL_P, KERNEL_N), dtype=torch.float32,
+                        device=dev)
     if y.numel() == 0:
         final.copy_(init_state if init_state is not None else 0.0)
-        return y, final
+        return y[..., :P], final[:, :, :P, :N]
     a = a.contiguous()
     lib = _library()
-    shape = (ctypes.c_int64 * 5)(B, S, H, P, N)
+    shape = (ctypes.c_int64 * 5)(B, S, H, KERNEL_P, KERNEL_N)
     strides = (ctypes.c_int64 * 13)(
         x.stride(0), x.stride(1), x.stride(2),
         dt.stride(0), dt.stride(1), dt.stride(2),
@@ -222,6 +250,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise RuntimeError("ssd_scan kernel launch failed: "
                            + lib.ssd_scan_error_string(rc).decode())
     ssd_scan_cuda.launches += 1
+    if (P, N) != (KERNEL_P, KERNEL_N):
+        return y[..., :P], final[:, :, :P, :N]
     return y, final
 
 

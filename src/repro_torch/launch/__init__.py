@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (batched prefill + greedy decode)."""
+"""Launchers of the port: ``serve`` (batched prefill + greedy decode) and
+``energy_sched`` (a day of LM jobs scheduled on a DVFS fleet)."""

@@ -6,7 +6,8 @@
 Port of the JAX package's ``launch/serve.py`` on one card: the prompts are
 left-padded to one length (the pads are not masked, as there), one prefill
 builds the decode cache, and ``Model.decode_step`` runs once per new token
-for the whole batch.  Weights are random, drawn from ``--seed``.  Without
+for the whole batch.  As there, a vlm prompt gets zero patch embeddings
+and an encdec prompt zero audio frames (both frontends are stubs).  Weights are random, drawn from ``--seed``.  Without
 ``--device`` it runs on the CUDA card and raises without one.
 """
 
@@ -57,6 +58,23 @@ class Request:
     done: bool = False
 
 
+def prompt_batch(cfg, tokens: torch.Tensor) -> dict:
+    """The prefill batch of ``tokens`` [B, S]: zero ``patch_embeds`` [B,
+    n_patches, d] for the vlm family and zero ``frames`` [B, n_frames, d]
+    for encdec, bfloat16, as the JAX ``Server.run`` feeds them."""
+    batch = {"tokens": tokens}
+    B = tokens.shape[0]
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(
+            (B, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16,
+            device=tokens.device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((B, cfg.n_frames, cfg.d_model),
+                                      dtype=torch.bfloat16,
+                                      device=tokens.device)
+    return batch
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -96,7 +114,8 @@ class Server:
         tokens = torch.from_numpy(toks).to(self.device)
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(self.params, {"tokens": tokens},
+        logits, cache = model.prefill(self.params,
+                                      prompt_batch(model.cfg, tokens),
                                       max_seq=self.max_seq)
         nxt = torch.argmax(logits, dim=-1)
         _sync(self.device)

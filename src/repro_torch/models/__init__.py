@@ -1,3 +1,4 @@
 """The model stack's serving path in torch: ``config``, ``layers``,
-``attention`` (dense family), ``ssm`` (Mamba2 SSD) and ``model``.
-Importing the package imports none of them."""
+``attention`` (self- and cross-attention), ``moe`` (capacity-routed
+experts), ``ssm`` (Mamba2 SSD), ``rglru`` (Griffin's recurrent block) and
+``model`` (every family).  Importing the package imports none of them."""

@@ -1,14 +1,14 @@
-"""Attention for the dense family: the blockwise prefill path (through the
-``flash_attention`` kernel), GQA / sliding-window / QKV-bias variants, and
-one-token decode against a ring cache.
+"""Attention: the blockwise prefill path (through the ``flash_attention``
+kernel), GQA / sliding-window / QKV-bias / bidirectional-prefix variants,
+cross-attention over encoder states, and one-token decode against a ring
+cache or a fixed encoder cache.
 
 Port of the JAX package's ``models/attention.py`` on one card: its
 ``partition.wcast`` / ``constrain`` become plain casts, and of the
 sequence-sharded flash-decode only the unsharded branch exists.  The
 blockwise algorithm and its ``_pick_chunk`` live beside the kernel, as
 ``kernels/flash_attention.py::flash_attention_plain`` / ``pick_chunk``.  The
-cross-attention functions (``project_kv``, ``decode_cross_attn``) wait for
-the encdec family.  The decode cache is updated in place (the reference
+decode cache is updated in place (the reference
 returns a new one): one resident ``[L, B, W, KV, dh]`` pair instead of a
 copy per step.
 """
@@ -62,37 +62,64 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: Optional[int] = None,
-                        chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                        chunk: int = DEFAULT_CHUNK,
+                        bidirectional_prefix: int = 0) -> torch.Tensor:
     """Block attention with static block skipping.  q: [B, Sq, H, dh];
-    k/v: [B, Sk, KV, dh] (H = KV * group).  Returns [B, Sq, H, dh].
+    k/v: [B, Sk, KV, dh] (H = KV * group); positions below
+    ``bidirectional_prefix`` attend both ways.  Returns [B, Sq, H, dh].
 
     On a CUDA tensor this is the hand-written ``flash_attention`` kernel
     (``kernels/csrc/flash_attention.cu``, the kernel the JAX package wrote
     in Pallas for this function); on the CPU its plain torch version, the
     reference's jnp algorithm with ``chunk``-sized blocks."""
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                  chunk=chunk)
+                                  chunk=chunk,
+                                  bidirectional_prefix=bidirectional_prefix)
 
 
 def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              window: Optional[int] = None,
-              rope: bool = True) -> torch.Tensor:
-    """Full self-attention block (projections + blockwise core + output
-    projection)."""
-    return attention_with_kv(params, x, cfg, positions=positions,
-                             causal=causal, window=window, rope=rope)[0]
+              window: Optional[int] = None, rope: bool = True,
+              bidirectional_prefix: int = 0,
+              kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full attention block (projections + blockwise core + output
+    projection).  ``kv_x`` switches to cross-attention: keys and values
+    from the encoder states, no rope, not causal."""
+    B, S, _ = x.shape
+    if kv_x is None:
+        return attention_with_kv(params, x, cfg, positions=positions,
+                                 causal=causal, window=window, rope=rope,
+                                 bidirectional_prefix=bidirectional_prefix)[0]
+    q, _, _ = _project_qkv(params, x, cfg, positions, rope=False)
+    k, v = project_kv(params, kv_x, cfg)
+    out = blockwise_attention(q, k, v, causal=False, window=window,
+                              bidirectional_prefix=bidirectional_prefix)
+    out = out.reshape(B, S, cfg.q_dim)
+    return out @ params["wo"].to(COMPUTE_DTYPE)
+
+
+def project_kv(params: Params, kv_x: torch.Tensor, cfg: ModelConfig):
+    """Keys/values (no rope) from encoder states: each [B, Sk, KV, dh]."""
+    B, Sk, _ = kv_x.shape
+    k = kv_x @ params["wk"].to(COMPUTE_DTYPE)
+    v = kv_x @ params["wv"].to(COMPUTE_DTYPE)
+    if "bk" in params:
+        k = k + params["bk"].to(COMPUTE_DTYPE)
+        v = v + params["bv"].to(COMPUTE_DTYPE)
+    return (k.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim_),
+            v.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim_))
 
 
 def attention_with_kv(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       positions: Optional[torch.Tensor] = None,
                       causal: bool = True, window: Optional[int] = None,
-                      rope: bool = True):
+                      rope: bool = True, bidirectional_prefix: int = 0):
     """Like :func:`attention` but also returns the (post-rope) K/V for the
     decode cache: (out [B, S, d], (k, v) each [B, S, KV, dh])."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions, rope)
-    out = blockwise_attention(q, k, v, causal=causal, window=window)
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              bidirectional_prefix=bidirectional_prefix)
     out = out.reshape(B, S, cfg.q_dim)
     return out @ params["wo"].to(COMPUTE_DTYPE), (k, v)
 
@@ -171,6 +198,23 @@ def decode_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     out = decode_attention_sharded(q[:, 0], k_cache, v_cache, eff_len)
     out = out.reshape(B, cfg.q_dim)
     return out @ params["wo"].to(COMPUTE_DTYPE), k_cache, v_cache
+
+
+def decode_cross_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                      xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention over a fixed encoder cache.  x: [B, d];
+    xk/xv: [B, F, KV, dh].  Returns [B, d]."""
+    B = x.shape[0]
+    q, _, _ = _project_qkv(params, x[:, None], cfg, None, rope=False)
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    qg = q[:, 0].reshape(B, KV, H // KV, dh)
+    s = torch.einsum("bkgd,bfkd->bkgf", qg.to(COMPUTE_DTYPE).float(),
+                     xk.to(COMPUTE_DTYPE).float()) * (dh ** -0.5)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgf,bfkd->bkgd", p.to(COMPUTE_DTYPE).float(),
+                     xv.to(COMPUTE_DTYPE).float())
+    out = o.reshape(B, cfg.q_dim).to(x.dtype)
+    return out @ params["wo"].to(COMPUTE_DTYPE)
 
 
 def init_decode_cache(cfg: ModelConfig, n_layers: int, batch: int,

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,15 +48,23 @@ class ParamBuilder:
         raise ValueError(init)
 
 
+#: Matrices the forward reads in float32, which a serving copy keeps so: the
+#: MoE router and the RG-LRU gates.
+FLOAT32_MATRICES = ("router", "wa", "wx")
+
+
 def serving_copy(params: Params) -> Params:
     """The tree with every floating tensor of two or more dimensions cast to
-    :data:`COMPUTE_DTYPE`, vectors kept as they are.  Exact for the forward
-    and decode paths: each matrix (embedding, head, projections, MLP, conv
-    weights) is cast to bfloat16 at every use anyway, while the vectors
-    (norm scales, ``a_log``, ``dt_bias``, ``d_skip``) are read in float32.
-    Halves the weights a server keeps resident."""
+    :data:`COMPUTE_DTYPE`, except those under the keys of
+    :data:`FLOAT32_MATRICES`, and vectors kept as they are.  Exact for the
+    forward and decode paths: each other matrix (embedding, head,
+    projections, MLP and expert weights, conv weights) is cast to bfloat16
+    at every use anyway, while the vectors (norm scales and biases,
+    ``a_log``, ``dt_bias``, ``d_skip``, ``lam``) and the kept matrices are
+    read in float32.  Halves the weights a server keeps resident."""
     if isinstance(params, dict):
-        return {k: serving_copy(v) for k, v in params.items()}
+        return {k: (v if k in FLOAT32_MATRICES else serving_copy(v))
+                for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(serving_copy(v) for v in params)
     if params.is_floating_point() and params.dim() >= 2:
@@ -110,6 +119,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """Fixed sinusoidal table [n, d] float32 (whisper's encoder positions),
+    in numpy as the reference computes it."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    angle = pos / np.power(10_000.0, dim / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,25 @@
-"""The model's serving path for the ``dense`` and ``ssm`` families.
+"""The model's serving path for every family of the JAX package: ``dense``,
+``moe``, ``ssm``, ``hybrid``, ``encdec`` and ``vlm``.
 
 Port of the JAX package's ``models/model.py`` (``Model``: ``init``,
 ``init_cache``, ``prefill``, ``decode_step``, ``head_matrix``,
-``_mask_pad_logits``, ``cache_window``).  Parameters are a plain dict
-under the reference's key names, with ``params["layers"]`` a list of
-per-layer dicts (the reference stacks them ``[L, ...]`` for ``lax.scan``;
-here a Python loop runs the layers).  The decode cache keeps the
-reference's stacked layout (``{"k", "v"}`` ``[L, B, W, KV, dh]`` or
-``{"conv", "ssm"}``) and ``decode_step`` updates it in place.
+``_mask_pad_logits``, ``cache_window``, ``_encode``, ``norm_kind``).
+Parameters are a plain dict under the reference's key names.  Where the
+reference stacks layers ``[L, ...]`` for ``lax.scan``, the port keeps a
+list and a Python loop runs it: ``params["layers"]`` is a list of
+per-layer dicts (for ``hybrid`` a list of pattern units, each a tuple of
+per-layer dicts, with the remainder layers in the tuple
+``params["rem_layers"]``; for ``encdec`` the decoder's, beside
+``params["enc_layers"]``).  The decode caches keep the reference's stacked
+layouts (``{"k", "v"}`` ``[L, B, W, KV, dh]``, ``{"conv", "ssm"}``, the
+hybrid's ``{"units", "rem"}``, the encdec's ``{"k", "v", "xk", "xv"}``) and
+``decode_step`` updates them in place.
 
-The other families (moe, hybrid, encdec, vlm) and the training entry
-points (``forward``, ``loss_fn``) are not ported yet (ROADMAP.md Queue 1).
+Every attention prefill goes through the ``flash_attention`` kernel on the
+card (whisper's encoder and cross-attention non-causal, the vlm image
+prefix bidirectional), every SSD prefill through ``ssd_scan``.  The
+training entry points (``forward``, ``loss_fn``) are not ported yet
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -21,20 +30,32 @@ import torch
 
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, ParamBuilder, Params,
-                                       embed_lookup, init_mlp, mlp, rms_norm)
+                                       embed_lookup, init_mlp, layer_norm, mlp,
+                                       rms_norm, sinusoidal_positions)
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
-def _init_norm(b: ParamBuilder, d: int) -> Params:
-    return {"scale": b.param((d,), init="zeros")}
+def _init_norm(b: ParamBuilder, d: int, kind: str) -> Params:
+    if kind == "rms":
+        return {"scale": b.param((d,), init="zeros")}
+    return {"scale": b.param((d,), init="ones"),
+            "bias": b.param((d,), init="zeros")}
+
+
+def _norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, p["scale"], eps)
+    return layer_norm(x, p["scale"], p["bias"], eps)
 
 
 class Model:
-    """One model of the ``dense`` or ``ssm`` family on one device.
+    """One model of any family on one device.
 
     ``device=None`` is the CUDA card and raises without one
     (``kernels/ops.py::resolve_device``); pass ``device="cpu"`` to run the
@@ -42,14 +63,33 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md "
-                f"Queue 1, 'Model stack': moe, hybrid, encdec, vlm); the port "
-                f"serves {FAMILIES}")
+            raise ValueError(f"family {cfg.family!r} is none of {FAMILIES}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
+    @property
+    def norm_kind(self) -> str:
+        return "ln" if self.cfg.family == "encdec" else "rms"
+
     # ----- construction -----------------------------------------------------
+    def _attn_mlp_layer_params(self, b: ParamBuilder, kind: str) -> Params:
+        cfg = self.cfg
+        if cfg.family == "moe":
+            ffn = moe_lib.init_moe(b, cfg)
+        else:
+            ffn = init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)
+        return {"ln1": _init_norm(b, cfg.d_model, kind),
+                "attn": attn_lib.init_attention(b, cfg),
+                "ln2": _init_norm(b, cfg.d_model, kind), "mlp": ffn}
+
+    def _hybrid_layer_params(self, b: ParamBuilder, kind: str) -> Params:
+        cfg = self.cfg
+        block = (rglru_lib.init_rglru_block(b, cfg) if kind == "rec"
+                 else attn_lib.init_attention(b, cfg))
+        return {"ln1": _init_norm(b, cfg.d_model, "rms"), "block": block,
+                "ln2": _init_norm(b, cfg.d_model, "rms"),
+                "mlp": init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)}
+
     def init(self, seed: int = 0) -> Params:
         """Random parameters from ``seed`` (float32 master weights, the
         reference's initializers and shapes; not its random draws)."""
@@ -62,18 +102,37 @@ class Model:
         if not cfg.tie_embeddings:
             params["head"] = b.param((cfg.d_model, cfg.padded_vocab),
                                      scale=0.02)
-        params["final_norm"] = _init_norm(b, cfg.d_model)
-        if cfg.family == "dense":
+        params["final_norm"] = _init_norm(b, cfg.d_model, self.norm_kind)
+        fam = cfg.family
+        if fam in ("dense", "vlm", "moe"):
+            params["layers"] = [self._attn_mlp_layer_params(b, "rms")
+                                for _ in range(cfg.n_layers)]
+        elif fam == "ssm":
             params["layers"] = [
-                {"ln1": _init_norm(b, cfg.d_model),
-                 "attn": attn_lib.init_attention(b, cfg),
-                 "ln2": _init_norm(b, cfg.d_model),
-                 "mlp": init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)}
-                for _ in range(cfg.n_layers)]
-        else:
-            params["layers"] = [
-                {"ln": _init_norm(b, cfg.d_model),
+                {"ln": _init_norm(b, cfg.d_model, "rms"),
                  "mixer": ssm_lib.init_mamba2(b, cfg)}
+                for _ in range(cfg.n_layers)]
+        elif fam == "hybrid":
+            pattern = cfg.block_pattern
+            n_units, rem = divmod(cfg.n_layers, len(pattern))
+            params["layers"] = [
+                tuple(self._hybrid_layer_params(b, kind) for kind in pattern)
+                for _ in range(n_units)]
+            if rem:  # omitted when empty, as in the reference
+                params["rem_layers"] = tuple(
+                    self._hybrid_layer_params(b, pattern[i])
+                    for i in range(rem))
+        else:  # encdec
+            params["enc_layers"] = [self._attn_mlp_layer_params(b, "ln")
+                                    for _ in range(cfg.n_enc_layers)]
+            params["enc_norm"] = _init_norm(b, cfg.d_model, "ln")
+            params["layers"] = [
+                {"ln1": _init_norm(b, cfg.d_model, "ln"),
+                 "self": attn_lib.init_attention(b, cfg),
+                 "ln2": _init_norm(b, cfg.d_model, "ln"),
+                 "cross": attn_lib.init_attention(b, cfg),
+                 "ln3": _init_norm(b, cfg.d_model, "ln"),
+                 "mlp": init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)}
                 for _ in range(cfg.n_layers)]
         return params
 
@@ -92,8 +151,8 @@ class Model:
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """x: [B, d] final hidden states -> [B, V] f32, pads masked."""
-        x = rms_norm(x[:, None], params["final_norm"]["scale"],
-                     self.cfg.norm_eps)[:, 0]
+        x = _norm(params["final_norm"], x[:, None], self.norm_kind,
+                  self.cfg.norm_eps)[:, 0]
         logits = x @ self.head_matrix(params).to(COMPUTE_DTYPE)
         return self._mask_pad_logits(logits.float())
 
@@ -103,45 +162,139 @@ class Model:
             return min(max_seq, self.cfg.sliding_window)
         return max_seq
 
-    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
-        """Zeroed decode cache."""
+    def init_cache(self, batch: int, max_seq: int):
+        """Zeroed decode cache in the reference's layout."""
         cfg = self.cfg
-        if cfg.family == "dense":
-            k, v = attn_lib.init_decode_cache(
-                cfg, cfg.n_layers, batch, self.cache_window(max_seq),
-                device=self.device)
+        fam = cfg.family
+        dev = self.device
+
+        def kv(n_layers, window):
+            return attn_lib.init_decode_cache(cfg, n_layers, batch, window,
+                                              device=dev)
+
+        if fam in ("dense", "vlm", "moe"):
+            k, v = kv(cfg.n_layers, self.cache_window(max_seq))
             return {"k": k, "v": v}
-        conv, ssm = ssm_lib.init_mamba2_state(cfg, batch, self.device)
-        L = cfg.n_layers
-        return {"conv": conv.expand((L,) + conv.shape).clone(),
-                "ssm": ssm.expand((L,) + ssm.shape).clone()}
+        if fam == "ssm":
+            conv, ssm = ssm_lib.init_mamba2_state(cfg, batch, dev)
+            L = cfg.n_layers
+            return {"conv": conv.expand((L,) + conv.shape).clone(),
+                    "ssm": ssm.expand((L,) + ssm.shape).clone()}
+        if fam == "hybrid":
+            pattern = cfg.block_pattern
+            n_units, rem = divmod(cfg.n_layers, len(pattern))
+            W = min(max_seq, cfg.local_window)
+            conv, h = rglru_lib.init_rglru_state(cfg, batch, dev)
+
+            def state(kind, n):
+                if kind == "rec":
+                    return {"conv": conv.expand((n,) + conv.shape).clone(),
+                            "h": h.expand((n,) + h.shape).clone()}
+                k, v = kv(n, W)
+                return {"k": k, "v": v}
+
+            return {"units": tuple(state(kind, n_units) for kind in pattern),
+                    "rem": tuple({name: t[0] for name, t in
+                                  state(pattern[i], 1).items()}
+                                 for i in range(rem))}
+        # encdec
+        k, v = kv(cfg.n_layers, max_seq)
+        xshape = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
+                  cfg.head_dim_)
+        return {"k": k, "v": v,
+                "xk": torch.zeros(xshape, dtype=COMPUTE_DTYPE, device=dev),
+                "xv": torch.zeros(xshape, dtype=COMPUTE_DTYPE, device=dev)}
+
+    # ----- layers -----------------------------------------------------------
+    def _ffn(self, p: Params, h: torch.Tensor) -> torch.Tensor:
+        if self.cfg.family == "moe":
+            return moe_lib.moe_mlp(p, h, self.cfg)[0]
+        return mlp(p, h, self.cfg.mlp_type)
+
+    def _hybrid_layer(self, p: Params, x, positions, kind: str, max_seq: int):
+        """One hybrid layer at prefill: (x, its decode state)."""
+        cfg = self.cfg
+        h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
+        if kind == "rec":
+            out, (conv, hst) = rglru_lib.recurrent_block(
+                p["block"], h, cfg, return_state=True)
+            st = {"conv": conv, "h": hst}
+        else:
+            out, (k, v) = attn_lib.attention_with_kv(
+                p["block"], h, cfg, positions=positions,
+                window=cfg.local_window)
+            k, v = attn_lib.pack_cache(k, v, min(max_seq, cfg.local_window))
+            st = {"k": k, "v": v}
+        x = x + out
+        h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
+        return x + mlp(p["mlp"], h, cfg.mlp_type), st
+
+    def _hybrid_decode(self, p: Params, x, kind: str, st: dict, pos: int):
+        """One hybrid layer at decode; ``st`` is updated in place."""
+        cfg = self.cfg
+        h = _norm(p["ln1"], x[:, None], "rms", cfg.norm_eps)[:, 0]
+        if kind == "rec":
+            out, (conv, hst) = rglru_lib.recurrent_block_decode(
+                p["block"], h, cfg, (st["conv"], st["h"]))
+            st["conv"].copy_(conv)
+            st["h"].copy_(hst)
+        else:
+            out, _, _ = attn_lib.decode_attn(p["block"], h, cfg, st["k"],
+                                             st["v"], pos, st["k"].shape[1])
+        x = x + out
+        h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
+        return x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over precomputed frame embeddings [B, F, d]
+        (the conv frontend is a stub in the reference too): sinusoidal
+        positions, non-causal attention without rope, layernorm."""
+        cfg = self.cfg
+        F = frames.shape[1]
+        pos = torch.from_numpy(sinusoidal_positions(F, cfg.d_model)).to(
+            self.device)
+        x = frames.to(COMPUTE_DTYPE) + pos.to(COMPUTE_DTYPE)
+        for p in params["enc_layers"]:
+            h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
+            x = x + attn_lib.attention(p["attn"], h, cfg, causal=False,
+                                       rope=False)
+            h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
+            x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        return _norm(params["enc_norm"], x, "ln", cfg.norm_eps)
 
     # ----- prefill ----------------------------------------------------------
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                max_seq: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Process a prompt ``batch["tokens"]`` [B, S]; returns (last-token
-        logits [B, V] f32, decode cache)."""
+                max_seq: int) -> Tuple[torch.Tensor, dict]:
+        """Process a prompt ``batch["tokens"]`` [B, S] (plus
+        ``batch["patch_embeds"]`` [B, n_patches, d] for vlm, which overwrite
+        the first positions, and ``batch["frames"]`` [B, n_frames, d] for
+        encdec); returns (last-token logits [B, V] f32, decode cache)."""
         cfg = self.cfg
+        fam = cfg.family
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         x = embed_lookup(params["embed"], tokens)
+        if fam == "vlm":
+            pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
+            x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
+        positions = torch.arange(S, device=self.device)[None, :]
         cache = self.init_cache(B, max_seq)
-        if cfg.family == "dense":
+        if fam in ("dense", "vlm", "moe"):
             W = cache["k"].shape[2]
-            positions = torch.arange(S, device=self.device)[None, :]
+            prefix = cfg.n_patches if fam == "vlm" else 0
             for i, p in enumerate(params["layers"]):
                 h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
                 out, (k, v) = attn_lib.attention_with_kv(
                     p["attn"], h, cfg, positions=positions,
-                    window=cfg.sliding_window)
+                    window=cfg.sliding_window, bidirectional_prefix=prefix)
                 x = x + out
                 h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-                x = x + mlp(p["mlp"], h, cfg.mlp_type)
+                x = x + self._ffn(p["mlp"], h)
                 kc, vc = attn_lib.pack_cache(k, v, W)
                 cache["k"][i].copy_(kc)
                 cache["v"][i].copy_(vc)
-        else:
+        elif fam == "ssm":
             for i, p in enumerate(params["layers"]):
                 h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
                 out, (conv, ssm) = ssm_lib.mamba2_block(p["mixer"], h, cfg,
@@ -149,20 +302,50 @@ class Model:
                 x = x + out
                 cache["conv"][i].copy_(conv)
                 cache["ssm"][i].copy_(ssm)
+        elif fam == "hybrid":
+            pattern = cfg.block_pattern
+            for u, unit in enumerate(params["layers"]):
+                for i, kind in enumerate(pattern):
+                    x, st = self._hybrid_layer(unit[i], x, positions, kind,
+                                               max_seq)
+                    for name, t in st.items():
+                        cache["units"][i][name][u].copy_(t)
+            for i, p in enumerate(params.get("rem_layers", ())):
+                x, st = self._hybrid_layer(p, x, positions, pattern[i],
+                                           max_seq)
+                for name, t in st.items():
+                    cache["rem"][i][name].copy_(t)
+        else:  # encdec
+            enc = self._encode(params, torch.as_tensor(batch["frames"],
+                                                       device=self.device))
+            for i, p in enumerate(params["layers"]):
+                h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
+                out, (k, v) = attn_lib.attention_with_kv(
+                    p["self"], h, cfg, positions=positions)
+                x = x + out
+                h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
+                xk, xv = attn_lib.project_kv(p["cross"], enc, cfg)
+                x = x + attn_lib.attention(p["cross"], h, cfg, kv_x=enc,
+                                           rope=False)
+                h = _norm(p["ln3"], x, "ln", cfg.norm_eps)
+                x = x + mlp(p["mlp"], h, cfg.mlp_type)
+                kc, vc = attn_lib.pack_cache(k, v, max_seq)
+                for name, t in (("k", kc), ("v", vc), ("xk", xk), ("xv", xv)):
+                    cache[name][i].copy_(t)
         return self._logits(params, x[:, -1]), cache
 
     # ----- decode -----------------------------------------------------------
     @torch.no_grad()
-    def decode_step(self, params: Params, cache: Dict[str, torch.Tensor],
-                    token: torch.Tensor, pos: int
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def decode_step(self, params: Params, cache: dict, token: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, dict]:
         """One token.  token: [B] int; pos: the current length.  Returns
         (logits [B, V] f32, the cache, updated in place)."""
         cfg = self.cfg
+        fam = cfg.family
         token = torch.as_tensor(token, device=self.device)
         pos = int(pos)
         x = embed_lookup(params["embed"], token)                   # [B, d]
-        if cfg.family == "dense":
+        if fam in ("dense", "vlm", "moe"):
             W = cache["k"].shape[2]
             for i, p in enumerate(params["layers"]):
                 h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
@@ -170,9 +353,9 @@ class Model:
                                                  cache["k"][i], cache["v"][i],
                                                  pos, W)
                 x = x + out
-                h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-                x = x + mlp(p["mlp"], h, cfg.mlp_type)
-        else:
+                h = rms_norm(x[:, None], p["ln2"]["scale"], cfg.norm_eps)
+                x = x + self._ffn(p["mlp"], h)[:, 0]
+        elif fam == "ssm":
             for i, p in enumerate(params["layers"]):
                 h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
                 out, (conv, ssm) = ssm_lib.mamba2_decode(
@@ -180,4 +363,28 @@ class Model:
                 x = x + out
                 cache["conv"][i].copy_(conv)
                 cache["ssm"][i].copy_(ssm)
+        elif fam == "hybrid":
+            pattern = cfg.block_pattern
+            for u, unit in enumerate(params["layers"]):
+                for i, kind in enumerate(pattern):
+                    st = {name: t[u] for name, t in
+                          cache["units"][i].items()}
+                    x = self._hybrid_decode(unit[i], x, kind, st, pos)
+            for i, p in enumerate(params.get("rem_layers", ())):
+                x = self._hybrid_decode(p, x, pattern[i], cache["rem"][i],
+                                        pos)
+        else:  # encdec
+            W = cache["k"].shape[2]
+            for i, p in enumerate(params["layers"]):
+                h = _norm(p["ln1"], x[:, None], "ln", cfg.norm_eps)[:, 0]
+                out, _, _ = attn_lib.decode_attn(p["self"], h, cfg,
+                                                 cache["k"][i], cache["v"][i],
+                                                 pos, W)
+                x = x + out
+                h = _norm(p["ln2"], x[:, None], "ln", cfg.norm_eps)[:, 0]
+                x = x + attn_lib.decode_cross_attn(p["cross"], h, cfg,
+                                                   cache["xk"][i],
+                                                   cache["xv"][i])
+                h = _norm(p["ln3"], x[:, None], "ln", cfg.norm_eps)
+                x = x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
         return self._logits(params, x), cache

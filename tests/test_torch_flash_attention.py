@@ -169,3 +169,92 @@ def test_cpu_dispatch_never_builds(monkeypatch):
     out = fa.flash_attention_kernel(q, k, v, causal=True)
     assert out.shape == q.shape
     assert fa.flash_attention_cuda.launches == before
+
+
+# (S, chunk, window, prefix, H, KV, dh): the vlm family's image prefix,
+# causal, inside the first chunk (the reference asserts it fits one), with
+# and without a window that would otherwise hide the prefix's keys.
+PREFIX_CASES = [
+    (200, 64, None, 8, 4, 2, 16),       # internvl2-2b's reduced shape
+    (256, 128, None, 100, 4, 2, 64),
+    (211, 64, None, 64, 4, 4, 80),      # ragged, the prefix a whole chunk
+    (256, 64, 50, 40, 8, 2, 128),       # window: prefix keys stay visible
+    (130, 1024, 32, 17, 2, 1, 64),      # one chunk, prefix edge mid-tile
+]
+
+
+@pytest.mark.parametrize("S,chunk,window,prefix,H,KV,dh", PREFIX_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-p{c[3]}-dh{c[6]}"
+                              for c in PREFIX_CASES])
+def test_bidirectional_prefix_matches_blockwise_attention(S, chunk, window,
+                                                          prefix, H, KV, dh):
+    B = 2
+    arrays = _inputs(S + prefix, B, H, KV, S, dh, layout="model")
+    (jq, jk, jv), (q, k, v) = _both(arrays, "bf16")
+    want = rattn.blockwise_attention(jq, jk, jv, causal=True, window=window,
+                                     chunk=chunk, bidirectional_prefix=prefix)
+    got = fa.flash_attention_kernel(q, k, v, causal=True, window=window,
+                                    chunk=chunk, bidirectional_prefix=prefix)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-2)
+    # The prefix changes the rows inside it and nothing after the window.
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                     chunk=chunk)
+    assert not torch.equal(got[:, :prefix], plain[:, :prefix])
+    if window is None:
+        assert torch.equal(got[:, prefix:], plain[:, prefix:])
+
+
+def test_prefix_must_fit_one_chunk():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 1, 2, 2, 256, 16,
+                                                   layout="model"))
+    with pytest.raises(ValueError, match="fit one chunk"):
+        fa.flash_attention_plain(q, k, v, causal=True, chunk=64,
+                                 bidirectional_prefix=65)
+
+
+@pytest.mark.parametrize("dh,want", [(16, 64), (64, 64), (72, 80), (80, 80),
+                                     (96, 128), (160, 256), (256, 256)])
+def test_kernel_head_dim(dh, want):
+    assert fa.kernel_head_dim(dh) == want
+
+
+def test_head_dim_above_256_raises():
+    with pytest.raises(ValueError, match="above the largest"):
+        fa.kernel_head_dim(257)
+
+
+# (dh, causal, window, prefix, Sq, Sk): the head dims the CUDA wrapper pads
+# (every reduced config's 16, stablelm-12b's 160), causal and not, the
+# cross-attention's Sq != Sk.
+PAD_CASES = [(16, True, None, 0, 96, 96), (16, True, 32, 8, 96, 96),
+             (160, True, None, 0, 80, 80), (160, False, None, 0, 64, 75),
+             (40, False, None, 0, 48, 30)]
+
+
+@pytest.mark.parametrize("dh,causal,window,prefix,Sq,Sk", PAD_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_padded_head_dim_at_real_scale_equals_unpadded(dh, causal, window,
+                                                       prefix, Sq, Sk, dtype):
+    """What the CUDA wrapper does for a dh it is not compiled for: q, k, v
+    zero-padded to ``kernel_head_dim(dh)``, the real dh's scale, the output
+    sliced back.  Zero columns add nothing to a score, so the plain version
+    gives the unpadded answer (float32 sums of the same products with zeros
+    between; bf16 outputs the same after rounding)."""
+    rng = np.random.default_rng(dh + Sq)
+    tdt = DTYPES[dtype][1]
+    q = torch.from_numpy(rng.standard_normal((2, Sq, 4, dh)).astype(
+        np.float32)).to(tdt)
+    k, v = (torch.from_numpy(rng.standard_normal((2, Sk, 2, dh)).astype(
+        np.float32)).to(tdt) for _ in range(2))
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    bidirectional_prefix=prefix)
+    dk = fa.kernel_head_dim(dh)
+    padded = [fa.pad_head_dim(t, dk) for t in (q, k, v)]
+    assert padded[0].shape[-1] == dk and torch.equal(padded[0][..., :dh], q)
+    got = fa.flash_attention_plain(*padded, causal=causal, window=window,
+                                   bidirectional_prefix=prefix,
+                                   scale=dh ** -0.5)
+    assert torch.equal(got[..., dh:], torch.zeros_like(got[..., dh:]))
+    np.testing.assert_allclose(_f32(got[..., :dh]), _f32(want),
+                               atol=1e-6 if dtype == "f32" else 1e-2,
+                               rtol=0)

@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no file of it (nor ``chip_smoke.py`` or ``dvfs_opt_probe.py``)
-imports them."""
+package, and no file of it (nor ``chip_smoke.py``, ``dvfs_opt_probe.py``
+or ``attention_ab.py``) imports them."""
 
 import json
 import os
@@ -25,7 +25,9 @@ import repro_torch.kernels.ref, repro_torch.kernels.build
 import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan
 import repro_torch.configs, repro_torch.models.config, repro_torch.models.layers
 import repro_torch.models.attention, repro_torch.models.ssm
+import repro_torch.models.moe, repro_torch.models.rglru, repro_torch.core.jobs
 import repro_torch.models.model, repro_torch.launch.serve
+import repro_torch.launch.energy_sched
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
 print(json.dumps(mods))
@@ -42,7 +44,8 @@ def test_import_loads_no_jax_and_no_reference():
 
 def _sources():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "dvfs_opt_probe.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "dvfs_opt_probe.py",
+                    ROOT / "attention_ab.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -57,6 +60,7 @@ def test_port_mirrors_the_reference_tree():
                 "core/machines.py", "core/engine.py", "core/placement.py",
                 "core/faults.py", "core/bounds.py", "core/scheduling.py",
                 "core/online.py", "core/cluster.py", "core/tasks.py",
+                "core/jobs.py", "models/moe.py", "models/rglru.py",
                 "kernels/layout.py", "kernels/dvfs_opt.py", "kernels/ops.py",
                 "kernels/ref.py", "kernels/flash_attention.py",
                 "kernels/ssd_scan.py", "configs/registry.py",

@@ -1,6 +1,7 @@
 """The port's serving launcher on the CPU: the command line serves every
-request its token budget, ``Server`` keeps the device policy, and the
-presets are the JAX package's."""
+request its token budget for every family, ``Server`` keeps the device
+policy and feeds the vlm and encdec stubs zeros as the JAX ``Server.run``
+does, and the presets are the JAX package's."""
 
 import dataclasses
 
@@ -17,7 +18,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "h2o-danube-1.8b",
+                                  "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b",
+                                  "recurrentgemma-2b", "whisper-base",
+                                  "internvl2-2b"])
 def test_main_serves_every_request(arch, capsys):
     stats = serve.main(["--arch", arch, "--preset", "smoke", "--device",
                         "cpu", "--requests", "3", "--prompt-len", "20",
@@ -49,6 +53,22 @@ def test_server_run_is_greedy_and_counts_no_launch():
     assert [r.out[0] for r in reqs] == torch.argmax(logits, -1).tolist()
     assert (flash_attention.flash_attention_cuda.launches,
             ssd_scan.ssd_scan_cuda.launches) == before
+
+
+@pytest.mark.parametrize("arch,key,shape", [
+    ("internvl2-2b", "patch_embeds", ("n_patches", "d_model")),
+    ("whisper-base", "frames", ("n_frames", "d_model"))])
+def test_prompt_batch_feeds_zero_stubs(arch, key, shape):
+    cfg = serve.preset_config(arch, "smoke")
+    tokens = torch.ones((3, 20), dtype=torch.int64)
+    batch = serve.prompt_batch(cfg, tokens)
+    assert set(batch) == {"tokens", key}
+    want = (3,) + tuple(getattr(cfg, f) for f in shape)
+    assert tuple(batch[key].shape) == want
+    assert batch[key].dtype == torch.bfloat16 and not batch[key].any()
+    assert set(serve.prompt_batch(serve.preset_config("h2o-danube-1.8b",
+                                                      "smoke"), tokens)) \
+        == {"tokens"}
 
 
 def test_server_refuses_more_requests_than_slots():

@@ -146,3 +146,44 @@ def test_cpu_dispatch_never_builds(monkeypatch):
     y, f = ss.ssd_scan_kernel(x, dt, a, b, c, 16)
     assert y.shape == x.shape and f.shape == (1, 2, 16, 8)
     assert ss.ssd_scan_cuda.launches == before
+
+
+# (P, N, with_init): the shapes the CUDA wrapper pads to (64, 128): every
+# reduced ssm config's (16, 16), the 100m preset's (16, 64), and one side
+# padded at a time.
+PAD_SHAPES = [(16, 16, False), (16, 64, True), (64, 16, True),
+              (32, 128, False)]
+
+
+@pytest.mark.parametrize("P,N,with_init", PAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_padded_shape_equals_unpadded(P, N, with_init, dtype):
+    """What the CUDA wrapper does for a (P, N) it is not compiled for: x
+    zero-padded to P = 64, b and c to N = 128, the initial state to both,
+    y and the final state sliced back.  Zero columns of x give zero rows of
+    the state and of y, zero columns of b and c add nothing, so the plain
+    version gives the unpadded answer and zeros in the padding."""
+    _, tdt, _ = DTYPES[dtype]
+    B, S, H = 2, 128, 3
+    x, dt, a, b, c, init = (torch.from_numpy(t) for t in
+                            _inputs(P + N, B, S, H, P, N))
+    x, b, c = x.to(tdt), b.to(tdt), c.to(tdt)
+    init = init if with_init else None
+    y, fin = ss.ssd_scan_plain(x, dt, a, b, c, ss.KERNEL_CHUNK, init)
+    xp, bp, cp, ip = ss.pad_shape(x, b, c, init)
+    assert xp.shape[-1] == ss.KERNEL_P and bp.shape[-1] == ss.KERNEL_N
+    assert torch.equal(xp[..., :P], x) and torch.equal(cp[..., :N], c)
+    y_p, fin_p = ss.ssd_scan_plain(xp, dt, a, bp, cp, ss.KERNEL_CHUNK, ip)
+    assert not y_p[..., P:].any() and not fin_p[:, :, P:].any()
+    assert not fin_p[..., N:].any()
+    np.testing.assert_allclose(_f32(y_p[..., :P]), _f32(y),
+                               atol=1e-5 if dtype == "f32" else 1e-2, rtol=0)
+    np.testing.assert_allclose(_f32(fin_p[:, :, :P, :N]), _f32(fin),
+                               atol=1e-5, rtol=0)
+
+
+def test_shape_above_the_kernels_is_refused():
+    x, dt, a, b, c, _ = (torch.from_numpy(t) for t in
+                         _inputs(3, 1, 16, 2, 128, 16))
+    with pytest.raises(ValueError, match="above the compiled"):
+        ss.pad_shape(x, b, c)
