@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the DVFS scheduler and the serving path of the
-model stack) on one NVIDIA card.
+"""Drive the PyTorch port (the DVFS scheduler, and the serving and training
+paths of the model stack) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -70,7 +70,31 @@ without the final result line):
    paths (for moe under the JAX package's allowance for capacity routing,
    three times the bar); one prefill and a window of decode steps under
    ``torch.profiler``, the prefill's device time split between the
-   family's kernel, the matmuls and the rest.
+   family's kernel, the matmuls and the rest;
+11. attention backward — ``flash_attention_bwd`` (CUDA) against its plain
+   version (dq, dk, dv from the forward kernel's own output and row
+   log-sum-exp) at h2o-danube-1.8b's training shape, recurrentgemma-2b's dh
+   256 / MQA / window 2048, whisper-base's encoder and cross-attention,
+   internvl2-2b's prefix of 256 at dh 128, the padded dh 16 and dh 160 and
+   a ragged edge input, all with q x4; plain renderings of four faults the
+   bar must catch (the delta term dropped, the causal mask one key off or
+   the last key dropped, the GQA group sum over head 0 only, the scale
+   applied twice to dK); each timed beside the plain version, the backward
+   of ``scaled_dot_product_attention`` and the bound;
+12. train danube — the training path: h2o-danube-1.8b at full width and
+   depth (24 layers), B 8, S 2048, ``succ`` data, the reference launcher's
+   AdamW and schedule, remat on: the first step's loss and gradient norm
+   through the kernels against the same step through the plain versions;
+   then ``run_loop`` for 8 steps with a checkpoint every 3 steps and a
+   failure injected once at step 6 (it restores step 3 and replays; the
+   replayed losses must equal the first run's bit for bit), the launch
+   counts of the run checked exactly; step seconds, tokens/s, peak memory,
+   and one profiled step's device idle share and the kernels' shares;
+13. train families — one train step of the ``smoke`` preset of each other
+   family on the card (moe, hybrid, encdec, vlm: finite loss and gradient
+   norm, the backward kernel launched); for the ssm family the
+   ``NotImplementedError`` of the SSD scan, which has no backward kernel
+   yet.
 
 Each kernel check compares the normalised error, max |got - want| /
 (|want| + rms(want)), with its bar, and shows that the bar would catch the
@@ -209,6 +233,46 @@ CONSIST_BAR = 1e-1
 # (moonshot-v1-16b-a3b at 16 layers on an H100: 0.2379 through the kernels,
 # 0.2420 through the plain versions, chip_smoke.py, one run).
 MOE_CONSIST_BAR = 3e-1
+
+# The attention backward phase: (name, (B, Sq, Sk, H, KV, dh), causal,
+# window, prefix), all with q x ATTN_EDGE_Q_SCALE so that a key too many or
+# too few moves rows: h2o-danube-1.8b's training shape (its window 4096 is
+# longer than the sequence), the shapes the other families give the forward
+# kernel, and a ragged edge input at dh 80.
+ATTN_BWD_SHAPES = (
+    ("danube", (8, 2048, 2048, 32, 8, 80), True, 4096, 0),
+    ("recurrentgemma", (8, 2048, 2048, 10, 1, 256), True, 2048, 0),
+    ("whisper_encoder", (8, 1500, 1500, 8, 8, 64), False, None, 0),
+    ("whisper_cross", (8, 2048, 1500, 8, 8, 64), False, None, 0),
+    ("internvl_prefix", (8, 2048, 2048, 16, 8, 128), True, None, 256),
+    ("dh16_padded", (2, 1000, 1000, 8, 2, 16), True, 100, 0),
+    ("dh160_padded", (8, 2048, 2048, 32, 8, 160), True, None, 0),
+    ("edge", (2, 1000, 1000, 32, 8, 80), True, 100, 0))
+# Backward kernel against its plain version, bf16, the normalised error of
+# each of dq, dk, dv.  The two round P and dS to bf16 at the same places but
+# take exp2 against exp and sum in other orders; dq sums over the most keys.
+# Readings on an H100 at 700 W (chip_smoke.py, one run, these shapes): dq
+# 5.3e-3 to 2.1e-2, dk 3.4e-3 to 2.0e-2, dv 2.7e-3 to 1.3e-2.  The bar is
+# four times the largest; the plain renderings of the faults read 0.67-48
+# against it.
+ATTN_BWD_BAR = 8e-2
+
+# The training phases: h2o-danube-1.8b at full width and depth, the batch
+# and length of the serving phase's prompts, the JAX launcher's defaults
+# (lr 1e-3 on a cosine schedule with 20 warmup steps over the run, AdamW
+# b1 0.9, b2 0.95, weight decay 0.1, clipping at 1.0), 8 steps with a
+# checkpoint every 3 and a failure injected once before step 6.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "h2o-danube-1.8b", 8, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_LR = 8, 3, 6, 1e-3
+# The first step through the kernels against the same step through the plain
+# versions: loss and global gradient norm, relative, the CPU tests' bars
+# against the JAX package (tests/test_torch_train.py).  Readings on an H100
+# at 700 W (chip_smoke.py, one run): 4.1e-6 and 1.3e-4.
+TRAIN_LOSS_BAR, TRAIN_GNORM_BAR = 2e-3, 2e-2
+# One smoke-preset step of each other family on the card.
+TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "recurrentgemma-2b",
+                      "whisper-base", "internvl2-2b", "mamba2-370m")
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 4, 64
 
 # Float32 operations per task row of csrc/dvfs_opt.cu, counted from the
 # source with every add, subtract, multiply, divide, square root, min/max,
@@ -398,13 +462,9 @@ def max_rel(got, want) -> float:
     return ((g - w).abs().max() / w.abs().max()).item()
 
 
-def attention_bound(B, H, KV, S, dh, causal, window, sk=None,
-                    prefix=0) -> tuple:
-    """Least time for attention over these shapes (``sk`` keys, S of them
-    if None; keys below ``prefix`` visible to every query): the larger of
-    the operations of the live (unmasked) score entries, 4 B H dh per entry
-    at the bf16 peak, and the bytes of q, k, v and o once each (bf16)."""
-    sk = S if sk is None else sk
+def live_entries(S, sk, causal, window, prefix) -> int:
+    """Unmasked score entries of one head: S queries over ``sk`` keys,
+    keys below ``prefix`` visible to every query."""
     live = 0
     for q in range(S):
         hi = min(q, sk - 1) if causal else sk - 1
@@ -412,8 +472,31 @@ def attention_bound(B, H, KV, S, dh, causal, window, sk=None,
         band = max(0, hi - lo + 1)
         pre = min(prefix, sk)
         live += band + pre - max(0, min(pre - 1, hi) - lo + 1)
+    return live
+
+
+def attention_bound(B, H, KV, S, dh, causal, window, sk=None,
+                    prefix=0) -> tuple:
+    """Least time for attention over these shapes (``sk`` keys, S of them
+    if None; keys below ``prefix`` visible to every query): the larger of
+    the operations of the live (unmasked) score entries, 4 B H dh per entry
+    at the bf16 peak, and the bytes of q, k, v and o once each (bf16)."""
+    sk = S if sk is None else sk
+    live = live_entries(S, sk, causal, window, prefix)
     t_ops = 4.0 * B * H * dh * live / PEAK_BF16_OPS * 1e3
     t_bytes = 2.0 * B * dh * (2 * H * S + 2 * KV * sk) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_bwd_bound(B, H, KV, S, dh, causal, window, sk, prefix) -> tuple:
+    """Least time for the attention backward: the larger of five products
+    over the live score entries (S and dP recomputed, dV, dK, dQ: 10 B H dh
+    per entry) at the bf16 peak, and the bytes of q, k, v, o, dO, dq, dk,
+    dv (bf16) and lse (float32) once each."""
+    live = live_entries(S, sk, causal, window, prefix)
+    t_ops = 10.0 * B * H * dh * live / PEAK_BF16_OPS * 1e3
+    t_bytes = (2.0 * B * dh * (4 * H * S + 4 * KV * sk)
+               + 4.0 * B * H * S) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -480,6 +563,27 @@ def sdpa_ms(torch, q, k, v, causal, window, prefix=0, backend=False):
     ops = sorted({e.key for e in prof.key_averages()
                   if e.key.startswith("aten::_scaled_dot_product")})
     return ms, "+".join(ops) or "not seen by the profiler"
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix=0):
+    """Time of the backward alone of one ``scaled_dot_product_attention``
+    call on the same inputs and mask (GQA through ``enable_gqa``), or None
+    if this torch has none for them.  A yardstick only."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    mask = sdpa_mask(torch, q.shape[1], k.shape[1], causal, window, prefix,
+                     q.device)
+    try:
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        return event_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+    except (RuntimeError, TypeError) as exc:
+        print(f"  sdpa backward yardstick unavailable: {exc}", flush=True)
+        return None
 
 
 def check_schedule(checks, res, n: int, name: str):
@@ -751,6 +855,9 @@ def main(argv=None) -> int:
     serve = {arch: serve_phase(checks, np, torch, dev, arch, kernel, layers,
                                args.seed)
              for arch, kernel, layers in SERVE_ARCHS}
+    attn_bwd = attention_bwd_phase(checks, torch, dev, args.seed)
+    train = train_danube_phase(checks, np, torch, dev, args.seed)
+    train_families = train_families_phase(checks, torch, dev, args.seed)
 
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
@@ -782,7 +889,15 @@ def main(argv=None) -> int:
         "long_8192": attn["long"], "edge": attn["edge"],
         **{key: attn[key] for key, _ in ATTN_HEAD_DIMS}, **attn_family,
         "serve": {arch: serve[arch] for arch, kernel, _ in SERVE_ARCHS
-                  if kernel == "flash_attention"}}, {
+                  if kernel == "flash_attention"},
+        "launches_train": train["launches"]["flash_attention"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:96 (jax.grad of "
+                    "blockwise_attention; no Pallas backward)",
+        "launches": train["launches"]["flash_attention_bwd"],
+        **attn_bwd["danube"], "shapes": attn_bwd, "train": train,
+        "train_families": train_families}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
@@ -1296,14 +1411,11 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
     the kernels-against-plain errors."""
     import dataclasses
 
-    from repro_torch.kernels import dvfs_opt, flash_attention, ssd_scan
     from repro_torch.launch.serve import (Request, Server, preset_config,
                                           prompt_batch)
     from repro_torch.models.model import Model
 
-    counters = {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
-                "flash_attention": flash_attention.flash_attention_cuda,
-                "ssd_scan": ssd_scan.ssd_scan_cuda}
+    counters = kernel_counters()
     cfg = preset_config(arch, "full")
     cut = ""
     if layers is not None:
@@ -1461,6 +1573,351 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
             "prefill_s": stats["prefill_s"],
             "prefill_profile_ms": {name: ms for name, (ms, _) in
                                    split.items()}}
+
+
+def kernel_counters() -> dict:
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from repro_torch.kernels import dvfs_opt, flash_attention, ssd_scan
+    return {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
+            "flash_attention": flash_attention.flash_attention_cuda,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
+            "ssd_scan": ssd_scan.ssd_scan_cuda}
+
+
+def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
+    """The backward kernel against its plain version at
+    ``ATTN_BWD_SHAPES``, from the forward kernel's own output and lse, with
+    plain renderings of the faults the bar is there for; each shape timed
+    beside the plain version, SDPA's backward and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    out = {}
+    for key, (B, Sq, Sk, H, KV, dh), causal, window, prefix in (
+            ATTN_BWD_SHAPES):
+        g = H // KV
+        q = torch.randn((B, Sq, H, dh), generator=gen, device=dev)
+        q = (q * ATTN_EDGE_Q_SCALE).to(torch.bfloat16)
+        k, v = (torch.randn((B, Sk, KV, dh), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        do = torch.randn((B, Sq, H, dh), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_cuda(q, k, v, prefix=prefix,
+                                         return_lse=True, **kw)
+
+        def plain(q_, k_, v_, o_, lse_, do_, window_=window):
+            return fa.flash_attention_bwd_plain(
+                q_, k_, v_, o_, lse_, do_, causal=causal, window=window_,
+                bidirectional_prefix=prefix)
+
+        def kernel():
+            return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               prefix=prefix, **kw)
+
+        got, want = kernel(), plain(q, k, v, o, lse, do)
+        errs = {n: norm_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                     got, want)}
+        abs_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        checks.expect(finite and max(errs.values()) <= ATTN_BWD_BAR,
+                      f"attention backward {key}: finite {finite}, norm errs "
+                      f"{errs} <= {ATTN_BWD_BAR}")
+        # Plain renderings of faults, each against the right answer: the
+        # delta term dropped (o = 0 makes delta 0); the causal mask one key
+        # off (the diagonal dropped: q[1:] over k[:-1], window one shorter,
+        # against the rows from 1 on) or, without a causal mask, the last
+        # key dropped; the GQA group sum over head 0 of each group only;
+        # the scale applied twice to dK.
+        dq_w, dk_w, _ = want
+        fq, fk, _ = plain(q, k, v, torch.zeros_like(o), lse, do)
+        faults = {"delta dropped": max(norm_err(fq, dq_w),
+                                       norm_err(fk, dk_w))}
+        if causal:
+            w1 = None if window is None else window - 1
+            faults["causal mask one key off"] = norm_err(
+                plain(q[:, 1:], k[:, :-1], v[:, :-1], o[:, 1:],
+                      lse[:, :, 1:].contiguous(), do[:, 1:], w1)[0],
+                dq_w[:, 1:])
+        else:
+            faults["last key dropped"] = norm_err(
+                plain(q, k[:, :-1], v[:, :-1], o, lse, do)[0], dq_w)
+        if g > 1:
+            faults["group sum over head 0"] = norm_err(
+                plain(q[:, :, ::g], k, v, o[:, :, ::g],
+                      lse[:, ::g].contiguous(), do[:, :, ::g])[1], dk_w)
+        faults["scale twice on dK"] = norm_err(dk_w * dh ** -0.5, dk_w)
+        checks.expect(min(faults.values()) > ATTN_BWD_BAR,
+                      f"attention backward {key}: every fault's norm err "
+                      f"{faults} exceeds the bar {ATTN_BWD_BAR}")
+        del got, want, fq, fk, dq_w, dk_w
+        k_ms = event_ms(torch, kernel, 10)
+        p_ms = event_ms(torch, lambda: plain(q, k, v, o, lse, do), 2)
+        lib_ms = sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix)
+        b_ms, b_by = attention_bwd_bound(B, H, KV, Sq, dh, causal, window,
+                                         Sk, prefix)
+        out[key] = {"max_abs_err": abs_err, "norm_errs": errs, "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "fault_norm_errs": faults,
+                    "shape": [B, Sq, Sk, H, KV, dh,
+                              "causal" if causal else "non-causal", window,
+                              prefix, f"q x{ATTN_EDGE_Q_SCALE}"],
+                    "kernel_head_dim": fa.kernel_head_dim(dh)}
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"phase attention backward {key}: B {B} Sq {Sq} Sk {Sk} H {H} "
+              f"KV {KV} dh {dh} (kernel dh {fa.kernel_head_dim(dh)}) "
+              f"{'causal' if causal else 'non-causal'} window {window} "
+              f"prefix {prefix}, q x{ATTN_EDGE_Q_SCALE}: norm err "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f", max abs err {abs_err:.3e}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, sdpa backward {lib}, bound {b_ms:.4f} ms "
+              f"({b_by}), kernel at {b_ms / k_ms:.1%} of the bound; plain "
+              "renderings of faults, norm err against the right answer: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in faults.items()),
+              flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def _loss_and_grad_norm(torch, model, params, batch):
+    """(loss, global gradient norm) of ``model.loss_fn`` at ``params``,
+    leaving ``params`` untouched."""
+    from torch.utils import _pytree as pytree
+    leaves, spec = pytree.tree_flatten(params)
+    live = [t.detach().requires_grad_() for t in leaves]
+    loss, _ = model.loss_fn(pytree.tree_unflatten(live, spec), batch)
+    grads = torch.autograd.grad(loss, live)
+    norm = torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in grads))
+    return loss.item(), norm.item()
+
+
+def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
+    """The training path at full width: the first step through the kernels
+    against the plain versions, then ``run_loop`` with checkpoints and an
+    injected failure, the launch counts read around it, and one profiled
+    step."""
+    import tempfile
+
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.train import WARMUP, preset_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.loop import LoopConfig, run_loop
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    counters = kernel_counters()
+    cfg = preset_config(TRAIN_ARCH, "full")
+    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    model = Model(cfg, device=dev)
+    opt = AdamW(learning_rate=cosine_schedule(TRAIN_LR, WARMUP, TRAIN_STEPS))
+    data = SyntheticLMData.for_config(cfg, S, B, seed=seed, mode="succ")
+    state = init_state(model, opt, seed)
+    n_params = sum(t.numel() for t in _tensors(state.params))
+
+    def put(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    # The first step through the kernels, then through the plain versions
+    # (no kernel may launch there), on the same parameters and batch.
+    batch0 = put(data.batch(0))
+    k_loss, k_norm = _loss_and_grad_norm(torch, model, state.params, batch0)
+    before = {name: fn.launches for name, fn in counters.items()}
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain):
+        p_loss, p_norm = _loss_and_grad_norm(torch, model, state.params,
+                                             batch0)
+    plain_launches = {name: fn.launches - before[name]
+                      for name, fn in counters.items()}
+    checks.expect(not any(plain_launches.values()),
+                  f"train: the plain path launched {plain_launches}")
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    norm_rel = abs(k_norm - p_norm) / p_norm
+    checks.expect(math.isfinite(k_loss) and math.isfinite(k_norm)
+                  and loss_rel <= TRAIN_LOSS_BAR
+                  and norm_rel <= TRAIN_GNORM_BAR,
+                  f"train: first step through the kernels, loss {k_loss} and "
+                  f"grad norm {k_norm}, against the plain versions' {p_loss} "
+                  f"and {p_norm}: rel {loss_rel} <= {TRAIN_LOSS_BAR}, "
+                  f"{norm_rel} <= {TRAIN_GNORM_BAR}")
+    del batch0
+    torch.cuda.empty_cache()
+
+    # The main path: the loop, its counts read around it.
+    step = make_train_step(model, opt)
+    step_s = []
+
+    def timed_step(st, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, metrics = step(st, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return st, metrics
+
+    armed = [True]
+
+    def failure_hook(i):
+        if i == TRAIN_FAIL_AT and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected device loss")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        run = run_loop(timed_step, state, data, LoopConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+            checkpoint_dir=ckdir, keep=1, log_every=0), put_batch=put,
+            failure_hook=failure_hook,
+            log=lambda msg: print(f"  {msg}", flush=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = run["state"]
+    steps_run = run["loss_steps"]
+    n = len(steps_run)
+    want = {"dvfs_opt": 0, "flash_attention": 2 * L * n,
+            "flash_attention_bwd": L * n, "ssd_scan": 0}
+    checks.expect(launches == want,
+                  f"train: launches {launches} over {n} steps, want {want} "
+                  "(the forward kernel twice a layer with remat, the "
+                  "backward once)")
+    first, replay = {}, {}
+    for i, loss in zip(steps_run, run["losses"]):
+        (replay if i in first else first)[i] = loss
+    checks.expect(run["recoveries"] == 1 and run["final_step"] == TRAIN_STEPS
+                  and sorted(replay) == list(range(TRAIN_CKPT_EVERY + 1,
+                                                   TRAIN_FAIL_AT)),
+                  f"train: {run['recoveries']} recoveries, final step "
+                  f"{run['final_step']}, steps run {steps_run}")
+    checks.expect(all(math.isfinite(x) for x in run["losses"])
+                  and all(replay[i] == first[i] for i in replay),
+                  f"train: losses finite, replayed {replay} equal to the "
+                  f"first run's {first}")
+    checks.expect(first[TRAIN_STEPS - 1] < first[0],
+                  f"train: loss falls, {first[0]} -> {first[TRAIN_STEPS - 1]}")
+
+    # One more step under the profiler: device busy against the wall, the
+    # two attention kernels' shares of the device time.
+    from torch.profiler import ProfilerActivity, profile
+    batch = put(data.batch(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    split, top = device_split(events, "flash_")   # both attention kernels
+    bwd_ms, n_bwd = device_split(events, "flash_bwd")[0]["kernel"]
+    fwd_ms, n_fwd = device_split(events, "flash_fwd")[0]["kernel"]
+    mm_ms = split["matmuls"][0]
+    step_med = statistics.median(step_s[1:])   # the first step warms up
+    result = {
+        "params": n_params, "batch": B, "seq": S, "layers": L,
+        "first_step": {"loss": k_loss, "plain_loss": p_loss,
+                       "loss_rel": loss_rel, "grad_norm": k_norm,
+                       "plain_grad_norm": p_norm, "grad_norm_rel": norm_rel},
+        "launches": launches, "steps_run": steps_run,
+        "losses_first": first, "losses_replayed": replay,
+        "step_s": step_s, "step_s_median": step_med,
+        "tokens_per_s": B * S / step_med, "loop_wall_s": wall,
+        "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30,
+        "profiled_step_wall_ms": p_wall * 1e3,
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / 1e3 / p_wall,
+        "bwd_kernel_ms": bwd_ms, "bwd_share": bwd_ms / busy,
+        "fwd_kernel_ms": fwd_ms, "fwd_share": fwd_ms / busy,
+        "matmul_ms": mm_ms, "matmul_share": mm_ms / busy}
+    print(f"phase train {TRAIN_ARCH}: {n_params} parameters, {L} layers, "
+          f"B {B} S {S} succ, AdamW lr {TRAIN_LR} cosine (warmup {WARMUP}), "
+          f"remat; first step through the kernels: loss {k_loss:.6f}, grad "
+          f"norm {k_norm:.6f}; plain versions: {p_loss:.6f}, {p_norm:.6f} "
+          f"(rel {loss_rel:.3e}, {norm_rel:.3e}); loop: steps run "
+          f"{steps_run}, recoveries {run['recoveries']}, launches "
+          f"{launches}; losses "
+          + ", ".join(f"{i}: {x:.6f}" for i, x in sorted(first.items()))
+          + "; replayed after restoring step "
+          f"{TRAIN_CKPT_EVERY}: "
+          + ", ".join(f"{i}: {x:.6f} (first run {first[i]:.6f}, equal "
+                      f"{x == first[i]})" for i, x in sorted(replay.items()))
+          + f"; step {step_med:.4f} s (median of {len(step_s) - 1} after "
+          f"the first; all {[round(x, 4) for x in step_s]}), "
+          f"{B * S / step_med:.1f} tokens/s, loop wall {wall:.2f} s with "
+          f"checkpoints, peak memory {peak / 2**30:.3f} GiB over the loop "
+          "(a restore holds two states)", flush=True)
+    print(f"phase train {TRAIN_ARCH} step profile: wall {p_wall * 1e3:.3f} "
+          f"ms, peak memory of the step {step_peak / 2**30:.3f} GiB, device "
+          f"busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / 1e3 / p_wall:.4f}; flash_attention_bwd "
+          f"{bwd_ms:.3f} ms x{n_bwd} ({bwd_ms / busy:.1%}), "
+          f"flash_attention {fwd_ms:.3f} ms x{n_fwd} "
+          f"({fwd_ms / busy:.1%}), matmuls {mm_ms:.3f} ms "
+          f"({mm_ms / busy:.1%}); top of the rest: {top}", flush=True)
+    del state, run, model, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_families_phase(checks, torch, dev, seed: int) -> dict:
+    """One train step of each other family's smoke preset on the card:
+    finite loss and gradient norm with the backward kernel launched; for
+    the ssm family the SSD scan's ``NotImplementedError``."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    counters = kernel_counters()
+    out = {}
+    for arch in TRAIN_FAMILY_ARCHS:
+        cfg = preset_config(arch, "smoke")
+        model = Model(cfg, device=dev)
+        opt = AdamW()
+        state = init_state(model, opt, seed)
+        step = make_train_step(model, opt)
+        batch = SyntheticLMData.for_config(
+            cfg, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH, seed=seed,
+            mode="succ").batch(0)
+        for fn in counters.values():
+            fn.launches = 0
+        if cfg.family == "ssm":
+            try:
+                step(state, batch)
+                raised = "nothing"
+            except NotImplementedError as exc:
+                raised = str(exc)
+            checks.expect("ssd_scan" in raised and "ROADMAP" in raised,
+                          f"train {arch}: the SSD scan's NotImplementedError "
+                          f"on the card, got {raised!r}")
+            out[arch] = {"family": cfg.family, "raised": raised}
+            print(f"phase train family {arch} ({cfg.family}): raised "
+                  f"NotImplementedError: {raised}", flush=True)
+            continue
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        launches = {name: fn.launches for name, fn in counters.items()}
+        checks.expect(math.isfinite(loss) and math.isfinite(gnorm)
+                      and launches["flash_attention_bwd"] > 0,
+                      f"train {arch}: loss {loss}, grad norm {gnorm}, "
+                      f"launches {launches}")
+        out[arch] = {"family": cfg.family, "loss": loss, "grad_norm": gnorm,
+                     "launches": launches}
+        print(f"phase train family {arch} ({cfg.family}, smoke preset, B "
+              f"{TRAIN_FAMILY_BATCH} S {TRAIN_FAMILY_SEQ}): loss {loss:.6f}, "
+              f"grad norm {gnorm:.6f}, launches {launches}", flush=True)
+        del state, model
+    torch.cuda.empty_cache()
+    return out
 
 
 # Kernel names as the profiler shows them, per family kernel.

@@ -11,7 +11,10 @@ for bit.  Nothing here imports the reference: pass
 ``astuple()`` / tuple form.
 
 :func:`model_params_from_arrays` does the same for a model: the reference's
-``Model.init`` pytree with numpy leaves becomes the port's parameter dict.
+``Model.init`` pytree with numpy leaves becomes the port's parameter dict;
+:func:`model_params_to_arrays` is its inverse (tests compare gradients leaf
+by leaf with it), and :func:`train_state_from_arrays` carries a training
+state (parameters, AdamW moments, counts) across.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from repro_torch.core.single_task import TaskConfig
 from repro_torch.core.tasks import TaskSet
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import FAMILIES
+from repro_torch.optim.adamw import OptState
+from repro_torch.train.trainer import TrainState
 
 Fields = Union[Mapping, Sequence]
 
@@ -131,6 +136,72 @@ def model_params_from_arrays(cfg: ModelConfig, tree: Mapping,
     for name, n in stacks.items():
         out[name] = _unstack(out[name], n, name)
     return out
+
+
+def _stack(trees: list):
+    """A list of congruent trees as one tree of stacked ``[n, ...]`` numpy
+    leaves (the inverse of :func:`_unstack`)."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack([t[i] for t in trees]) for i in range(len(first)))
+    return np.stack([_array(t) for t in trees])
+
+
+def _array(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(t)
+
+
+def _arrays(tree):
+    if isinstance(tree, Mapping):
+        return {k: _arrays(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_arrays(v) for v in tree)
+    return _array(tree)
+
+
+def model_params_to_arrays(cfg: ModelConfig, params: Mapping) -> dict:
+    """The reference's ``Model.init`` layout of the port's parameters (or
+    of a tree shaped as them, such as their gradients): numpy leaves, each
+    per-layer list stacked into ``[L, ...]`` (the hybrid's units tuple by
+    tuple), the other keys as they are.  The inverse of
+    :func:`model_params_from_arrays`; bfloat16 leaves come back as
+    float32."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is none of {FAMILIES}")
+    stacks = _stacks(cfg)
+    out = {}
+    for k, v in params.items():
+        if k in stacks:
+            if len(v) != stacks[k]:
+                raise ValueError(f"{k}: {len(v)} layers, the config has "
+                                 f"{stacks[k]}")
+            out[k] = _stack(list(v))
+        else:
+            out[k] = _arrays(v)
+    return out
+
+
+def train_state_from_arrays(cfg: ModelConfig, state, device="cpu"):
+    """The port's ``TrainState`` from the reference's (``params``, ``opt``
+    with ``m``, ``v`` and ``count``, and ``step``; numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, state)``): parameters and both moments
+    through :func:`model_params_from_arrays`, the counts as int32
+    scalars."""
+    def count(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device=device)
+
+    return TrainState(
+        params=model_params_from_arrays(cfg, state.params, device),
+        opt=OptState(m=model_params_from_arrays(cfg, state.opt.m, device),
+                     v=model_params_from_arrays(cfg, state.opt.v, device),
+                     count=count(state.opt.count)),
+        step=count(state.step))
 
 
 def _leaves(tree):

@@ -4,7 +4,8 @@
   per-task solve), ``csrc/dvfs_opt.cu``;
 * ``flash_attention`` — forward GQA attention, causal and/or windowed, with
   a bidirectional prefix (every attention prefill: dense, moe, hybrid,
-  encdec, vlm), ``csrc/flash_attention.cu``;
+  encdec, vlm), ``csrc/flash_attention.cu``, and its gradient (training),
+  ``csrc/flash_attention_bwd.cu``;
 * ``ssd_scan``        — the Mamba2 SSD chunked scan (ssm-family prefill),
   ``csrc/ssd_scan.cu``;
 * ``build``           — compiles ``csrc/*.cu`` with ``nvcc`` at first use;

@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("dvfs_opt", "flash_attention", "ssd_scan")
+KERNELS = ("dvfs_opt", "flash_attention", "flash_attention_bwd", "ssd_scan")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 #: sm_90a keeps Hopper-only instructions available.  No --use_fast_math:

@@ -10,7 +10,10 @@
 // Input:  q [B, Sq, H, dh], k/v [B, Sk, KV, dh] bf16, each with its own
 //         (batch, seq, head) element strides, a unit dh stride and 16-byte
 //         aligned rows; query head h reads kv head h / (H / KV).
-// Output: o with q's shape and strides, bf16.
+// Output: o with q's shape and strides, bf16; where asked for, the row
+//         log-sum-exp lse [B, H, Sq] float32 in natural-log units
+//         (m * scale + log(l), +inf for a row that sees no key), which the
+//         backward (flash_attention_bwd.cu) recomputes P from.
 // dh is 64, 80, 128 or 256, each its own instantiation, taken natively;
 // the Python wrapper zero-pads any other dh up to 256 to the next of them.
 //
@@ -57,6 +60,9 @@
 //   template flag, so a launch without one runs no prefix test at all
 //   (made at run time, the tests slowed the dh 64 and 80 kernels by some
 //   8% on an H100; attention_ab.py reads it).
+// - The row log-sum-exp for the backward is a template flag too: tested at
+//   run time, the dormant store slowed the kernel by 2-5% on an H100
+//   (attention_ab.py), so the serving instantiations compile without it.
 // - Causal blocks carry from 1 to Sk/128 tiles; the heaviest (last) query
 //   blocks are launched first.
 //
@@ -82,11 +88,13 @@ constexpr int kBox = 16;        // columns of one TMA box (32 bytes)
 constexpr int kStages = 3;      // K/V ring depth
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
 struct Params {
   bf16* o;
+  float* lse;          // [B, H, Sq]; written by flash_fwd<.., .., true>
   int H, KV, Sq, Sk;
   int64_t o_sb, o_ss, o_sh;
   int causal, window;  // window 0: none
@@ -366,7 +374,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
 
 // ---- the kernel -----------------------------------------------------------
 
-template <int DH, bool kPrefix>
+template <int DH, bool kPrefix, bool kLse>
 __global__ void __launch_bounds__(Cfg<DH>::kThreads, 1)
     flash_fwd(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
@@ -574,6 +582,14 @@ __global__ void __launch_bounds__(Cfg<DH>::kThreads, 1)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (kLse && t == 0) {
+    float* lb = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+    const float inf = __int_as_float(0x7f800000);
+    if (r0 < p.Sq)
+      lb[r0] = l0 > 0.f ? (m0 * p.scale_log2 + log2f(l0)) * kLn2 : inf;
+    if (r1 < p.Sq)
+      lb[r1] = l1 > 0.f ? (m1 * p.scale_log2 + log2f(l1)) * kLn2 : inf;
+  }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -649,7 +665,10 @@ cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
               strides[8], Cfg<DH>::kBk))
     return cudaErrorInvalidValue;
   const int bytes = Smem<DH>::kBytes;
-  auto kernel = p.prefix > 0 ? flash_fwd<DH, true> : flash_fwd<DH, false>;
+  auto kernel =
+      p.prefix > 0
+          ? (p.lse ? flash_fwd<DH, true, true> : flash_fwd<DH, true, false>)
+          : (p.lse ? flash_fwd<DH, false, true> : flash_fwd<DH, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -661,12 +680,13 @@ cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
 }  // namespace
 
 // shape: B, H, KV, Sq, Sk, dh.  strides: (batch, seq, head) element strides
-// of q, k, v, o in that order.  window 0: none; prefix 0: none.  Launches
+// of q, k, v, o in that order.  lse: a contiguous [B, H, Sq] float32 output,
+// or null.  window 0: none; prefix 0: none.  Launches
 // on `stream`; returns cudaGetLastError() as an int (cudaErrorInvalidValue
 // for a head dim it was not compiled for or a tensor map the driver
 // refuses, cudaErrorNotSupported without cuTensorMapEncodeTiled).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, float* lse,
                                       const int64_t* shape,
                                       const int64_t* strides, int causal,
                                       int window, int prefix, float scale,
@@ -678,6 +698,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   Params p;
   p.o = static_cast<bf16*>(o);
+  p.lse = lse;
   p.H = static_cast<int>(shape[1]);
   p.KV = static_cast<int>(shape[2]);
   p.Sq = static_cast<int>(shape[3]);

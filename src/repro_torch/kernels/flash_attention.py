@@ -1,16 +1,19 @@
-"""Forward GQA attention (causal and/or sliding window, with an optional
-bidirectional prefix) as a CUDA kernel.
+"""GQA attention (causal and/or sliding window, with an optional
+bidirectional prefix) as CUDA kernels: the forward and its gradient.
 
-Prefill hot spot of every attention family: ``models/attention.py::
-blockwise_attention`` calls :func:`flash_attention_kernel` once per
-attention layer (self-attention, whisper's encoder and cross-attention).
-The hand-written kernel in ``csrc/flash_attention.cu`` replaces the JAX
-package's Pallas TPU kernel ``repro/kernels/flash_attention.py::_kernel``,
-launched there by ``flash_attention``.
+Prefill and training hot spot of every attention family:
+``models/attention.py::blockwise_attention`` calls
+:func:`flash_attention_kernel` once per attention layer (self-attention,
+whisper's encoder and cross-attention).  The hand-written forward kernel in
+``csrc/flash_attention.cu`` replaces the JAX package's Pallas TPU kernel
+``repro/kernels/flash_attention.py::_kernel``, launched there by
+``flash_attention``.  The backward kernel in ``csrc/flash_attention_bwd.cu``
+has no Pallas counterpart: the JAX package takes ``jax.grad`` of the jnp
+``blockwise_attention``; the kernel computes that same gradient.
 
 Layout: the model's, q ``[B, Sq, H, dh]`` and k/v ``[B, Sk, KV, dh]`` with
-``H = KV * g`` (query head ``h`` reads kv head ``h // g``).  The kernel
-takes strides, so the public ``ops.flash_attention`` passes transposed
+``H = KV * g`` (query head ``h`` reads kv head ``h // g``).  The kernels
+take strides, so the public ``ops.flash_attention`` passes transposed
 views of the JAX layout ``[B, H, S, dh]`` without a copy.
 
 The function, on every path: scores ``q kᵀ`` with float32 accumulation,
@@ -21,22 +24,31 @@ image tokens attend to each other both ways); a running max and
 sum in float32 across key blocks; ``p`` rounded to the matmul dtype before
 ``p v``; the output divided by ``max(l, 1e-30)``, in the input dtype.
 
-Three functions compute it:
+The functions:
 
 * :func:`flash_attention_plain` — the reference's ``blockwise_attention``
   in plain torch (any device, any float dtype: the matmul inputs are
   rounded to the dtype of ``q``, bfloat16 on the model path as the
   reference casts them, float32 where a caller passes float32 as the
-  Pallas body computes);
-* :func:`flash_attention_cuda` — the CUDA kernel's wrapper, bfloat16 CUDA
-  tensors only; the kernel is compiled for :data:`HEAD_DIMS`, and the
+  Pallas body computes), optionally with the row log-sum-exp;
+* :func:`flash_attention_bwd_plain` — the gradient in plain blockwise
+  torch, the backward kernel's arithmetic (tests and ``chip_smoke.py``
+  hold the kernel to it; nothing on the card's path calls it);
+* :func:`flash_attention_cuda` — the forward kernel's wrapper, bfloat16
+  CUDA tensors only; the kernel is compiled for :data:`HEAD_DIMS`, and the
   wrapper zero-pads any other dh up to 256 to the next of them
   (:func:`kernel_head_dim`, :func:`pad_head_dim`): zero columns of q and k
   add nothing to a score, zero columns of v give zero output columns,
   which it slices away, and it passes the scale of the real dh.  It counts
   its launches in ``flash_attention_cuda.launches``;
+* :func:`flash_attention_bwd_cuda` — the backward kernel's wrapper (three
+  launches a call, counted once in ``flash_attention_bwd_cuda.launches``),
+  padding dh as the forward's does;
+* :class:`FlashAttention` — the ``torch.autograd.Function`` that joins the
+  two kernels;
 * :func:`flash_attention_kernel` — the dispatcher: a CPU tensor goes to the
-  plain version, a CUDA tensor to the kernel (or an error).
+  plain version (autograd differentiates it), a CUDA tensor to the kernels
+  (with the backward where grad is enabled), or an error.
 """
 
 from __future__ import annotations
@@ -91,54 +103,26 @@ def pick_chunk(s: int, chunk: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool, window: Optional[int] = None,
-                          chunk: int = DEFAULT_CHUNK,
-                          bidirectional_prefix: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Block attention with static block skipping (the reference's
-    ``blockwise_attention``, ``models/attention.py:96-178``).
-
-    q: [B, Sq, H, dh]; k/v: [B, Sk, KV, dh].  Both are split into chunks;
-    for each q chunk only the causally / window-wise reachable kv chunks
-    are computed, combined by running-max softmax rescaling.  Positions
-    below ``bidirectional_prefix`` attend to each other both ways (and,
-    under a window, stay visible to every query); as in the reference the
-    prefix must fit the first chunk.  ``scale`` defaults to ``dh ** -0.5``.
-    Returns [B, Sq, H, dh] in q's dtype."""
-    B, Sq, H, dh = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    g = H // KV
-    cd = q.dtype
+def _blocks(Sq: int, Sk: int, chunk: int, causal: bool,
+            window: Optional[int], prefix: int, device):
+    """The block structure of the plain versions: ``(cq, sq_pad, ck, sk_pad,
+    visits)`` where ``visits[qi]`` lists ``(kj, mask)`` for the key blocks
+    that query block ``qi`` computes (``mask`` [cq, ck] bool, or None where
+    every entry is live).  The reference's static block skipping and masks
+    (``models/attention.py:96-178``), shared by the forward and the
+    backward."""
     cq, sq_pad = pick_chunk(Sq, chunk)
     ck, sk_pad = pick_chunk(Sk, chunk)
-    if sq_pad != Sq:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sq_pad - Sq))
-    if sk_pad != Sk:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_pad - Sk))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad - Sk))
     kv_limit = Sk if sk_pad != Sk else None   # mask padded keys
     nq, nk = sq_pad // cq, sk_pad // ck
-    prefix = bidirectional_prefix
     if not (prefix <= cq or nq == 1):
         raise ValueError(f"bidirectional prefix {prefix} must fit one chunk "
                          f"({cq})")
-    if scale is None:
-        scale = dh ** -0.5
-    dev = q.device
-    # Matmul inputs rounded to cd, products summed in float32.
-    qg = q.reshape(B, nq, cq, KV, g, dh).to(cd).float()
-    kc = k.reshape(B, nk, ck, KV, dh).to(cd).float()
-    vc = v.reshape(B, nk, ck, KV, dh).to(cd).float()
-
-    out_chunks = []
+    visits = []
     for qi in range(nq):
         q_lo, q_hi = qi * cq, (qi + 1) * cq
-        q_pos = torch.arange(q_lo, q_hi, device=dev)
-        m = torch.full((B, KV, g, cq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, KV, g, cq), dtype=torch.float32, device=dev)
-        o = torch.zeros((B, KV, g, cq, dh), dtype=torch.float32, device=dev)
+        q_pos = torch.arange(q_lo, q_hi, device=device)
+        row = []
         for kj in range(nk):
             k_lo, k_hi = kj * ck, (kj + 1) * ck
             if causal and k_lo > q_hi - 1:
@@ -146,8 +130,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if (window is not None and k_hi - 1 < q_lo - window + 1
                     and not (prefix and k_lo < prefix)):
                 continue  # outside the sliding window: skipped
-            k_pos = torch.arange(k_lo, k_hi, device=dev)
-            s = torch.einsum("bqkgd,bckd->bkgqc", qg[:, qi], kc[:, kj]) * scale
+            k_pos = torch.arange(k_lo, k_hi, device=device)
             mask = None
             if causal and k_hi > q_lo:  # diagonal-crossing block
                 mask = q_pos[:, None] >= k_pos[None, :]
@@ -162,6 +145,60 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if kv_limit is not None and k_hi > kv_limit:
                 vmask = (k_pos[None, :] < kv_limit).expand(cq, ck)
                 mask = vmask if mask is None else (mask & vmask)
+            row.append((kj, mask))
+        visits.append(row)
+    return cq, sq_pad, ck, sk_pad, visits
+
+
+def _pad_seq(t: torch.Tensor, s: int) -> torch.Tensor:
+    """``t`` [B, S, ...] with zero rows appended up to ``s``."""
+    extra = s - t.shape[1]
+    if not extra:
+        return t
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, extra))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, window: Optional[int] = None,
+                          chunk: int = DEFAULT_CHUNK,
+                          bidirectional_prefix: int = 0,
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
+    """Block attention with static block skipping (the reference's
+    ``blockwise_attention``, ``models/attention.py:96-178``).
+
+    q: [B, Sq, H, dh]; k/v: [B, Sk, KV, dh].  Both are split into chunks;
+    for each q chunk only the causally / window-wise reachable kv chunks
+    are computed, combined by running-max softmax rescaling.  Positions
+    below ``bidirectional_prefix`` attend to each other both ways (and,
+    under a window, stay visible to every query); as in the reference the
+    prefix must fit the first chunk.  ``scale`` defaults to ``dh ** -0.5``.
+    Returns [B, Sq, H, dh] in q's dtype; with ``return_lse`` also the row
+    log-sum-exp of the scaled scores, ``m + log(l)`` [B, H, Sq] float32, as
+    the CUDA kernel writes it for the backward."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    cd = q.dtype
+    cq, sq_pad, ck, sk_pad, visits = _blocks(
+        Sq, Sk, chunk, causal, window, bidirectional_prefix, q.device)
+    nq, nk = sq_pad // cq, sk_pad // ck
+    if scale is None:
+        scale = dh ** -0.5
+    dev = q.device
+    # Matmul inputs rounded to cd, products summed in float32.
+    qg = _pad_seq(q, sq_pad).reshape(B, nq, cq, KV, g, dh).to(cd).float()
+    kc = _pad_seq(k, sk_pad).reshape(B, nk, ck, KV, dh).to(cd).float()
+    vc = _pad_seq(v, sk_pad).reshape(B, nk, ck, KV, dh).to(cd).float()
+
+    out_chunks, lse_chunks = [], []
+    for qi in range(nq):
+        m = torch.full((B, KV, g, cq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, g, cq), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, KV, g, cq, dh), dtype=torch.float32, device=dev)
+        for kj, mask in visits[qi]:
+            s = torch.einsum("bqkgd,bckd->bkgqc", qg[:, qi], kc[:, kj]) * scale
             if mask is not None:
                 s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
@@ -172,22 +209,89 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o = o * corr[..., None] + pv
             m = m_new
         out_chunks.append(o / torch.clamp(l, min=1e-30)[..., None])
+        lse_chunks.append(m + torch.log(l))
     out = torch.stack(out_chunks, dim=1)  # [B, nq, KV, g, cq, dh]
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, sq_pad, H, dh)
-    return out[:, :Sq].to(cd)
+    out = out[:, :Sq].to(cd)
+    if not return_lse:
+        return out
+    lse = torch.stack(lse_chunks, dim=3)  # [B, KV, g, nq, cq]
+    return out, lse.reshape(B, H, sq_pad)[:, :, :Sq]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool, window: Optional[int] = None,
+                              chunk: int = DEFAULT_CHUNK,
+                              bidirectional_prefix: int = 0,
+                              scale: Optional[float] = None):
+    """The gradient of :func:`flash_attention_plain` (and of the CUDA
+    kernel) with respect to q, k and v, in plain blockwise torch: the
+    arithmetic of ``csrc/flash_attention_bwd.cu``.
+
+    o: the forward's output; lse [B, H, Sq]: its row log-sum-exp; do: the
+    output's gradient, shaped as o.  ``delta = rowsum(do * o)`` in float32;
+    per visited block (the forward's skipping and masks) ``P = exp(S scale -
+    lse)``, zero where masked, ``dV += P^T dO``, ``dS = P (dO V^T -
+    delta)``, ``dQ += dS K scale``, ``dK += dS^T Q scale``, with P and dS
+    rounded to q's dtype as product inputs and every sum in float32.
+    Returns (dq, dk, dv) in the dtypes and shapes of q, k, v."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    cd = q.dtype
+    cq, sq_pad, ck, sk_pad, visits = _blocks(
+        Sq, Sk, chunk, causal, window, bidirectional_prefix, q.device)
+    nq, nk = sq_pad // cq, sk_pad // ck
+    if scale is None:
+        scale = dh ** -0.5
+
+    def rows(t, n, c, heads):  # [B, S, heads, dh] -> [B, n, c, KV, g, dh]
+        return _pad_seq(t, n * c).reshape(B, n, c, KV, heads // KV,
+                                          dh).to(cd).float()
+
+    qg, dog = rows(q, nq, cq, H), rows(do, nq, cq, H)
+    og = rows(o, nq, cq, H)
+    kc, vc = (rows(t, nk, ck, KV)[:, :, :, :, 0] for t in (k, v))
+    delta = torch.einsum("bnqkgd,bnqkgd->bnkgq", dog, og)  # [B,nq,KV,g,cq]
+    lse_p = torch.nn.functional.pad(lse.float(), (0, sq_pad - Sq))
+    lse_p = lse_p.reshape(B, KV, g, nq, cq).permute(0, 3, 1, 2, 4)
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros_like(kc)
+    dv = torch.zeros_like(vc)
+    for qi in range(nq):
+        for kj, mask in visits[qi]:
+            s = torch.einsum("bqkgd,bckd->bkgqc", qg[:, qi], kc[:, kj]) * scale
+            p = torch.exp(s - lse_p[:, qi, ..., None])
+            if mask is not None:
+                p = torch.where(mask, p, 0.0)
+            dv[:, kj] += torch.einsum("bkgqc,bqkgd->bckd", p.to(cd).float(),
+                                      dog[:, qi])
+            dp = torch.einsum("bqkgd,bckd->bkgqc", dog[:, qi], vc[:, kj])
+            ds = (p * (dp - delta[:, qi, ..., None])).to(cd).float()
+            dq[:, qi] += torch.einsum("bkgqc,bckd->bqkgd", ds,
+                                      kc[:, kj]) * scale
+            dk[:, kj] += torch.einsum("bkgqc,bqkgd->bckd", ds,
+                                      qg[:, qi]) * scale
+    dq = dq.reshape(B, sq_pad, H, dh)[:, :Sq]
+    dk = dk.reshape(B, sk_pad, KV, dh)[:, :Sk]
+    dv = dv.reshape(B, sk_pad, KV, dh)[:, :Sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel.
+# The CUDA kernels.
 # ---------------------------------------------------------------------------
 
 
 def _library():
-    """The built kernel library with its C signature declared."""
+    """The built forward kernel's library with its C signature declared."""
     lib = build.load("flash_attention")
     if not getattr(lib, "_flash_attention_typed", False):
         lib.flash_attention_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_void_p]
@@ -198,81 +302,197 @@ def _library():
     return lib
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device):
+def _bwd_library():
+    """The built backward kernels' library with its C signature declared."""
+    lib = build.load("flash_attention_bwd")
+    if not getattr(lib, "_flash_attention_bwd_typed", False):
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_void_p])
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib._flash_attention_bwd_typed = True
+    return lib
+
+
+def _check_operand(name: str, t: torch.Tensor, device: torch.device,
+                   fn: str = "flash_attention_cuda"):
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda takes CUDA tensors; {name} is "
+        raise ValueError(f"{fn} takes CUDA tensors; {name} is "
                          f"on {getattr(t, 'device', type(t).__name__)}")
     if t.device != device:
-        raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
-                         f"q on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_cuda takes bfloat16; {name} is "
-                        f"{t.dtype}")
+        raise TypeError(f"{fn} takes bfloat16; {name} is {t.dtype}")
     if t.dim() != 4:
-        raise ValueError(f"flash_attention_cuda: {name} must be 4-D "
-                         f"[B, S, heads, dh], got {tuple(t.shape)}")
+        raise ValueError(f"{fn}: {name} must be 4-D [B, S, heads, dh], got "
+                         f"{tuple(t.shape)}")
     # 16-byte loads of 8 bf16 along dh: unit dh stride, other strides whole
     # 16-byte steps, 16-byte aligned base.
     if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
             or t.data_ptr() % 16):
-        raise ValueError(f"flash_attention_cuda: {name} needs a unit head-dim "
-                         "stride, other strides multiples of 8 elements and a "
-                         f"16-byte aligned base; got strides {t.stride()}")
+        raise ValueError(f"{fn}: {name} needs a unit head-dim stride, other "
+                         "strides multiples of 8 elements and a 16-byte "
+                         f"aligned base; got strides {t.stride()}")
+
+
+def _check_shapes(q, k, v, window, prefix, fn: str):
+    """Validate q, k, v and the mask arguments; returns (B, Sq, H, dh, Sk,
+    KV, the compiled dh)."""
+    if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
+        raise ValueError(f"{fn} takes CUDA tensors; q is on "
+                         f"{getattr(q, 'device', type(q).__name__)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, q.device, fn)
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"{fn}: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"must be [B, Sk, KV, dh] with q {tuple(q.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{fn}: {H} query heads over {KV} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"{fn}: window {window} < 1")
+    if prefix < 0:
+        raise ValueError(f"{fn}: prefix {prefix} < 0")
+    return B, Sq, H, dh, Sk, KV, kernel_head_dim(dh)
+
+
+def _strides(*tensors) -> ctypes.Array:
+    return (ctypes.c_int64 * (3 * len(tensors)))(
+        *(s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int] = None,
-                         prefix: int = 0) -> torch.Tensor:
+                         prefix: int = 0, return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` on bfloat16 CUDA tensors q
     ``[B, Sq, H, dh]``, k/v ``[B, Sk, KV, dh]`` (any strides with a unit
     head-dim stride), keys below ``prefix`` visible to every query.  Returns
     the output with q's shape (q's strides where dh is compiled, else a
     slice of the padded output), still being computed on the current
-    stream.  Builds the kernel with ``nvcc`` at first use.  Raises on any
-    other input, a dh above 256 included, and if the launch is refused."""
-    if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
-        raise ValueError("flash_attention_cuda takes CUDA tensors; q is on "
-                         f"{getattr(q, 'device', type(q).__name__)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
-    B, Sq, H, dh = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
-        raise ValueError(f"flash_attention_cuda: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be [B, Sk, KV, dh] with q "
-                         f"{tuple(q.shape)}")
-    if KV == 0 or H % KV:
-        raise ValueError(f"flash_attention_cuda: {H} query heads over {KV} "
-                         "kv heads")
-    dk = kernel_head_dim(dh)
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention_cuda: window {window} < 1")
-    if prefix < 0:
-        raise ValueError(f"flash_attention_cuda: prefix {prefix} < 0")
+    stream; with ``return_lse`` also the row log-sum-exp [B, H, Sq] float32
+    that :func:`flash_attention_bwd_cuda` takes.  Builds the kernel with
+    ``nvcc`` at first use.  Raises on any other input, a dh above 256
+    included, and if the launch is refused."""
+    B, Sq, H, dh, Sk, KV, dk = _check_shapes(q, k, v, window, prefix,
+                                             "flash_attention_cuda")
     scale = float(dh ** -0.5)     # the real dh's, whatever the padding
     q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     out = torch.empty_like(q)   # q's strides where q is dense
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out[..., :dh]
+        return (out[..., :dh], lse) if return_lse else out[..., :dh]
     lib = _library()
     shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dk)
-    strides = (ctypes.c_int64 * 12)(
-        *(s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1),
-                                              t.stride(2))))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), shape,
-            strides, int(bool(causal)), int(window or 0), int(prefix), scale,
-            stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), shape,
+            _strides(q, k, v, out), int(bool(causal)), int(window or 0),
+            int(prefix), scale, stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     flash_attention_cuda.launches += 1
-    return out[..., :dh] if dk != dh else out
+    out = out[..., :dh] if dk != dh else out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool, window: Optional[int] = None,
+                             prefix: int = 0):
+    """Launch ``csrc/flash_attention_bwd.cu`` (its three kernels: delta,
+    dK/dV, dQ) on bfloat16 CUDA tensors: q, k, v as
+    :func:`flash_attention_cuda` takes them, o and do shaped as q, lse the
+    forward's [B, H, Sq] float32.  Returns (dq, dk, dv) shaped as q, k, v,
+    still being computed on the current stream.  Zero-pads a dh that is not
+    compiled, as the forward does.  Counts one launch per call in
+    ``flash_attention_bwd_cuda.launches``.  Raises on any other input and
+    if a launch is refused."""
+    fn = "flash_attention_bwd_cuda"
+    B, Sq, H, dh, Sk, KV, dk = _check_shapes(q, k, v, window, prefix, fn)
+    for name, t in (("o", o), ("do", do)):
+        _check_operand(name, t, q.device, fn)
+        if t.shape != q.shape:
+            raise ValueError(f"{fn}: {name} {tuple(t.shape)} must be shaped "
+                             f"as q {tuple(q.shape)}")
+    if (not isinstance(lse, torch.Tensor) or lse.device != q.device
+            or lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"{fn}: lse must be a contiguous float32 [B, H, Sq] "
+                         f"= {(B, H, Sq)} tensor on {q.device}")
+    scale = float(dh ** -0.5)
+    q, k, v, o, do = (pad_head_dim(t, dk) for t in (q, k, v, o, do))
+    dq, dkey, dval = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return tuple(t[..., :dh].zero_() for t in (dq, dkey, dval))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dkey.data_ptr(), dval.data_ptr(), shape,
+            _strides(q, k, v, o, do, dq, dkey, dval), int(bool(causal)),
+            int(window or 0), int(prefix), scale, stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention backward kernel launch failed: "
+                           + lib.flash_attention_bwd_error_string(rc).decode())
+    flash_attention_bwd_cuda.launches += 1
+    if dk != dh:
+        return dq[..., :dh], dkey[..., :dh], dval[..., :dh]
+    return dq, dkey, dval
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels take it: itself when its strides and base suit
+    16-byte loads, else a contiguous copy (a gradient autograd hands over
+    may be any view)."""
+    if (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the card with a gradient: the forward kernel, which also
+    writes the row log-sum-exp, and the backward kernel.  The gradient is
+    the JAX package's ``jax.grad`` of the same attention
+    (``blockwise_attention``), computed by hand-written kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                prefix: int):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      prefix=prefix, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, prefix)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, prefix = ctx.mask
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, _aligned(do), causal=causal, window=window,
+            prefix=prefix)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -280,14 +500,20 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            chunk: int = DEFAULT_CHUNK,
                            bidirectional_prefix: int = 0) -> torch.Tensor:
     """Attention in the model layout on q's device: a CPU tensor is
-    computed by :func:`flash_attention_plain` (with ``chunk``), a CUDA
-    tensor by the CUDA kernel (its own tiles; ``chunk`` does not change the
-    function)."""
+    computed by :func:`flash_attention_plain` (with ``chunk``; autograd
+    differentiates it), a CUDA tensor by the CUDA kernel (its own tiles;
+    ``chunk`` does not change the function): through :class:`FlashAttention`
+    and its backward kernel where grad is enabled and an input requires
+    it, else the forward alone."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk,
                                      bidirectional_prefix=bidirectional_prefix)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window,
+                                        bidirectional_prefix)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     prefix=bidirectional_prefix)
     raise ValueError(f"no flash_attention for device {q.device}")

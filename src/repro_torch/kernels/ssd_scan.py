@@ -263,10 +263,20 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     init_state: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(y, final_state)`` on x's device: a CPU tensor is computed by
-    :func:`ssd_scan_plain` with ``chunk``, a CUDA tensor by the CUDA kernel
-    with its own :data:`KERNEL_CHUNK` (the same function)."""
+    :func:`ssd_scan_plain` with ``chunk`` (autograd differentiates it), a
+    CUDA tensor by the CUDA kernel with its own :data:`KERNEL_CHUNK` (the
+    same function).  The kernel has no backward yet: on a CUDA tensor that
+    needs a gradient this raises ``NotImplementedError``, and never falls
+    back to the plain version."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk, init_state)
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, dt, a, b, c, init_state)):
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel on the card yet (ROADMAP.md "
+                "Queue 1, item 1: the ssd_scan backward kernel); the ssm "
+                "family trains on the CPU (device='cpu') until then")
         return ssd_scan_cuda(x, dt, a, b, c, init_state)
     raise ValueError(f"no ssd_scan for device {x.device}")

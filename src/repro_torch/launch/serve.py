@@ -24,29 +24,9 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.train import preset_config
 from repro_torch.models.layers import serving_copy
 from repro_torch.models.model import Model
-
-
-def preset_config(arch: str, preset: str):
-    """The JAX package's ``launch/train.py::preset_config``: ``full`` is the
-    assigned config verbatim, ``smoke`` its CPU-size reduction, ``100m`` a
-    ~100M-parameter same-family config."""
-    cfg = registry.get_config(arch)
-    if preset == "full":
-        return cfg
-    if preset == "smoke":
-        return cfg.reduced()
-    if preset == "100m":
-        return dataclasses.replace(
-            cfg.reduced(), name=cfg.name + "-100m",
-            n_layers=max(4, min(cfg.n_layers, 8)),
-            d_model=512, n_heads=8, n_kv_heads=min(cfg.n_kv_heads, 4),
-            head_dim=64, d_ff=1408 if not cfg.n_experts else 512,
-            vocab_size=32_000,
-            ssm_state=64 if cfg.ssm_state else 0,
-            rnn_width=512 if cfg.rnn_width else None)
-    raise ValueError(preset)
 
 
 @dataclasses.dataclass

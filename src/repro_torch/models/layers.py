@@ -10,7 +10,7 @@ are float32 (:data:`PARAM_DTYPE`); every matrix is cast to bfloat16
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -165,9 +165,32 @@ def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding.
+# Embedding / unembedding and the cross-entropy.
 # ---------------------------------------------------------------------------
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens].to(COMPUTE_DTYPE)   # == cast, then gather
+    """Rows of ``table`` in bfloat16 (== cast, then gather).  Through
+    ``F.embedding``, whose gradient sums the rows of repeated tokens in a
+    fixed order on the card, where an indexing gradient adds them with
+    atomics: a replayed training step gives the same bits."""
+    return F.embedding(tokens, table).to(COMPUTE_DTYPE)
+
+
+def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Logits in float32 from bfloat16 activations and head."""
+    return (x @ head.to(COMPUTE_DTYPE)).float()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean next-token CE over valid positions (``mask`` 1), in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

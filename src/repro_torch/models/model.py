@@ -1,9 +1,10 @@
-"""The model's serving path for every family of the JAX package: ``dense``,
-``moe``, ``ssm``, ``hybrid``, ``encdec`` and ``vlm``.
+"""The model's training and serving paths for every family of the JAX
+package: ``dense``, ``moe``, ``ssm``, ``hybrid``, ``encdec`` and ``vlm``.
 
-Port of the JAX package's ``models/model.py`` (``Model``: ``init``,
-``init_cache``, ``prefill``, ``decode_step``, ``head_matrix``,
-``_mask_pad_logits``, ``cache_window``, ``_encode``, ``norm_kind``).
+Port of the JAX package's ``models/model.py`` (``chunked_cross_entropy``;
+``Model``: ``init``, ``forward``, ``loss_fn``, ``init_cache``,
+``prefill``, ``decode_step``, ``head_matrix``, ``_mask_pad_logits``,
+``cache_window``, ``_encode``, ``norm_kind``).
 Parameters are a plain dict under the reference's key names.  Where the
 reference stacks layers ``[L, ...]`` for ``lax.scan``, the port keeps a
 list and a Python loop runs it: ``params["layers"]`` is a list of
@@ -17,16 +18,25 @@ hybrid's ``{"units", "rem"}``, the encdec's ``{"k", "v", "xk", "xv"}``) and
 
 Every attention prefill goes through the ``flash_attention`` kernel on the
 card (whisper's encoder and cross-attention non-causal, the vlm image
-prefix bidirectional), every SSD prefill through ``ssd_scan``.  The
-training entry points (``forward``, ``loss_fn``) are not ported yet
-(ROADMAP.md Queue 1).
+prefix bidirectional), every SSD prefill through ``ssd_scan``.  Training
+(``forward``, ``loss_fn``) runs the same attention through the kernel's
+``torch.autograd.Function``, whose backward is a kernel too; the SSD kernel
+has no backward yet, so the ssm family trains on the CPU only (on the card
+``ssd_scan_kernel`` raises).  Remat is one
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per layer,
+per hybrid unit and per encoder layer, where the reference has its
+per-layer ``jax.checkpoint``.  The reference's ``stack_layers`` and
+``_barrier`` (an ``optimization_barrier`` that fences XLA's scheduling
+around the ``lax.scan`` carry) are artifacts of scanning stacked weights:
+the port's Python loop over a list of layers needs neither.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -39,6 +49,51 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, ParamBuilder, Params,
                                        rms_norm, sinusoidal_positions)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+CE_CHUNK = 512  # sequence chunk for the checkpointed cross-entropy
+
+
+def _ce_chunk(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor, valid_vocab: Optional[int]):
+    """(sum of the masked NLL, sum of the mask) of one sequence chunk."""
+    logits = (x @ head).float()
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(vocab >= valid_vocab, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: int = CE_CHUNK,
+                          valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token CE; the logits are computed per sequence chunk under
+    ``torch.utils.checkpoint``, so only one chunk's [B, c, V] float32
+    logits is ever live (the backward recomputes them chunk by chunk).
+    x: [B, S, d]; head: [d, V]; labels: [B, S]; mask broadcastable to
+    [B, S].  The chunk is the largest power-of-two fraction of ``chunk``
+    dividing S, and the sums run chunk after chunk, as the reference's
+    scan does."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.float().expand(B, S)
+    labels = labels.long()
+    head = head.to(COMPUTE_DTYPE)   # one cast, shared by every chunk
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, c):
+        nll, m = checkpoint(_ce_chunk, x[:, lo:lo + c], head,
+                            labels[:, lo:lo + c], mask[:, lo:lo + c],
+                            valid_vocab, use_reentrant=False)
+        tot = tot + nll
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def _init_norm(b: ParamBuilder, d: int, kind: str) -> Params:
@@ -156,6 +211,130 @@ class Model:
         logits = x @ self.head_matrix(params).to(COMPUTE_DTYPE)
         return self._mask_pad_logits(logits.float())
 
+    # ----- forward (training) ---------------------------------------------
+    def _attn_mlp_layer(self, p: Params, x: torch.Tensor, positions, *,
+                        causal: bool = True, window=None, prefix: int = 0,
+                        rope: bool = True):
+        """One attention + MLP (or MoE) layer of the training forward:
+        (x, the layer's MoE aux loss or None)."""
+        cfg = self.cfg
+        kind = self.norm_kind
+        h = _norm(p["ln1"], x, kind, cfg.norm_eps)
+        x = x + attn_lib.attention(p["attn"], h, cfg, positions=positions,
+                                   causal=causal, window=window, rope=rope,
+                                   bidirectional_prefix=prefix)
+        h = _norm(p["ln2"], x, kind, cfg.norm_eps)
+        if cfg.family == "moe":
+            y, aux = moe_lib.moe_mlp(p["mlp"], h, cfg)
+            return x + y, aux
+        return x + mlp(p["mlp"], h, cfg.mlp_type), None
+
+    def _ssm_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        h = rms_norm(x, p["ln"]["scale"], self.cfg.norm_eps)
+        return x + ssm_lib.mamba2_block(p["mixer"], h, self.cfg)
+
+    def _hybrid_train_layer(self, p: Params, x: torch.Tensor, positions,
+                            kind: str) -> torch.Tensor:
+        cfg = self.cfg
+        h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
+        if kind == "rec":
+            x = x + rglru_lib.recurrent_block(p["block"], h, cfg)
+        else:
+            x = x + attn_lib.attention(p["block"], h, cfg, positions=positions,
+                                       causal=True, window=cfg.local_window)
+        h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
+        return x + mlp(p["mlp"], h, cfg.mlp_type)
+
+    def _hybrid_unit(self, unit, x: torch.Tensor, positions) -> torch.Tensor:
+        for p, kind in zip(unit, self.cfg.block_pattern):
+            x = self._hybrid_train_layer(p, x, positions, kind)
+        return x
+
+    def _decoder_layer(self, p: Params, x: torch.Tensor, positions,
+                       enc: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
+        x = x + attn_lib.attention(p["self"], h, cfg, positions=positions,
+                                   causal=True)
+        h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
+        x = x + attn_lib.attention(p["cross"], h, cfg, kv_x=enc, rope=False)
+        h = _norm(p["ln3"], x, "ln", cfg.norm_eps)
+        return x + mlp(p["mlp"], h, cfg.mlp_type)
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward: (pre-head hidden states [B, S, d] after the
+        final norm, the MoE aux loss summed over layers, 0 for the other
+        families).  ``batch`` holds ``tokens`` [B, S] (tensors or arrays),
+        plus ``patch_embeds`` (vlm) or ``frames`` (encdec).  With ``remat``
+        each layer (hybrid: each pattern unit; encdec: each encoder and
+        decoder layer) is recomputed in the backward instead of keeping
+        its activations, as the reference's ``jax.checkpoint`` does."""
+        cfg = self.cfg
+        fam = cfg.family
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B, S = tokens.shape
+        x = embed_lookup(params["embed"], tokens)
+        if fam == "vlm":
+            pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
+            x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
+        positions = torch.arange(S, device=self.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        if fam in ("dense", "vlm", "moe"):
+            prefix = cfg.n_patches if fam == "vlm" else 0
+
+            def layer(p, x):
+                return self._attn_mlp_layer(p, x, positions,
+                                            window=cfg.sliding_window,
+                                            prefix=prefix)
+
+            for p in params["layers"]:
+                x, a = run(layer, p, x)
+                if a is not None:
+                    aux = aux + a
+        elif fam == "ssm":
+            for p in params["layers"]:
+                x = run(self._ssm_layer, p, x)
+        elif fam == "hybrid":
+            for unit in params["layers"]:
+                x = run(self._hybrid_unit, unit, x, positions)
+            pattern = cfg.block_pattern
+            for i, p in enumerate(params.get("rem_layers", ())):
+                x = self._hybrid_train_layer(p, x, positions, pattern[i])
+        else:  # encdec
+            enc = self._encode(params, torch.as_tensor(batch["frames"],
+                                                       device=self.device),
+                               remat=remat)
+            for p in params["layers"]:
+                x = run(self._decoder_layer, p, x, positions, enc)
+        x = _norm(params["final_norm"], x, self.norm_kind, cfg.norm_eps)
+        return x, aux
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                remat: bool = True) -> Tuple[torch.Tensor, dict]:
+        """Mean next-token CE over ``batch["labels"]`` (and ``mask`` where
+        given; the vlm family's image positions are masked out) plus
+        ``1e-2 * aux`` for moe: (loss, {"ce", "aux"})."""
+        cfg = self.cfg
+        x, aux = self.forward(params, batch, remat=remat)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        if cfg.family == "vlm":
+            pmask = (torch.arange(labels.shape[1], device=self.device)
+                     >= cfg.n_patches)[None, :]
+            mask = pmask if mask is None else mask * pmask
+        ce = chunked_cross_entropy(x, self.head_matrix(params), labels, mask,
+                                   valid_vocab=cfg.vocab_size)
+        return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
+
     # ----- decode cache -----------------------------------------------------
     def cache_window(self, max_seq: int) -> int:
         if self.cfg.sliding_window:
@@ -245,21 +424,25 @@ class Model:
         h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
         return x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
 
-    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: Params, frames: torch.Tensor, *,
+                remat: bool = False) -> torch.Tensor:
         """Whisper's encoder over precomputed frame embeddings [B, F, d]
         (the conv frontend is a stub in the reference too): sinusoidal
-        positions, non-causal attention without rope, layernorm."""
+        positions, non-causal attention without rope, layernorm; with
+        ``remat`` each layer is recomputed in the backward."""
         cfg = self.cfg
         F = frames.shape[1]
         pos = torch.from_numpy(sinusoidal_positions(F, cfg.d_model)).to(
             self.device)
         x = frames.to(COMPUTE_DTYPE) + pos.to(COMPUTE_DTYPE)
+
+        def layer(p, x):
+            return self._attn_mlp_layer(p, x, None, causal=False,
+                                        rope=False)[0]
+
         for p in params["enc_layers"]:
-            h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
-            x = x + attn_lib.attention(p["attn"], h, cfg, causal=False,
-                                       rope=False)
-            h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
-            x = x + mlp(p["mlp"], h, cfg.mlp_type)
+            x = (checkpoint(layer, p, x, use_reentrant=False) if remat
+                 else layer(p, x))
         return _norm(params["enc_norm"], x, "ln", cfg.norm_eps)
 
     # ----- prefill ----------------------------------------------------------

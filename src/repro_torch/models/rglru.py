@@ -64,15 +64,12 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     prefix (Hillis-Steele): after the step of stride s every position holds
     the composition of the s * 2 steps that end there."""
     S = a.shape[1]
-    a, b = a.clone(), b.clone()
     s = 1
     while s < S:
-        # Both right-hand sides are new tensors before either slice is
-        # written, so no position reads a value of this step.
-        b_new = a[:, s:] * b[:, :-s] + b[:, s:]
+        # Out of place, so autograd can differentiate the scan (training).
+        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], dim=1)
         if 2 * s < S:  # the last step needs no gains
-            a[:, s:] = a[:, s:] * a[:, :-s]
-        b[:, s:] = b_new
+            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
         s *= 2
     return b
 

@@ -173,7 +173,8 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_paths_follow_the_source():
-    assert build.KERNELS == ("dvfs_opt", "flash_attention", "ssd_scan")
+    assert build.KERNELS == ("dvfs_opt", "flash_attention",
+                             "flash_attention_bwd", "ssd_scan")
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR

@@ -27,7 +27,10 @@ import repro_torch.configs, repro_torch.models.config, repro_torch.models.layers
 import repro_torch.models.attention, repro_torch.models.ssm
 import repro_torch.models.moe, repro_torch.models.rglru, repro_torch.core.jobs
 import repro_torch.models.model, repro_torch.launch.serve
-import repro_torch.launch.energy_sched
+import repro_torch.launch.energy_sched, repro_torch.launch.train
+import repro_torch.optim.adamw, repro_torch.optim.compression
+import repro_torch.data.pipeline, repro_torch.checkpoint.store
+import repro_torch.train.trainer, repro_torch.train.loop
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
 print(json.dumps(mods))
@@ -66,7 +69,9 @@ def test_port_mirrors_the_reference_tree():
                 "kernels/ssd_scan.py", "configs/registry.py",
                 "models/config.py", "models/layers.py",
                 "models/attention.py", "models/ssm.py", "models/model.py",
-                "launch/serve.py"):
+                "launch/serve.py", "launch/train.py", "optim/adamw.py",
+                "optim/compression.py", "data/pipeline.py",
+                "checkpoint/store.py", "train/trainer.py", "train/loop.py"):
         assert (ROOT / "src" / "repro" / rel).exists()
         assert (PORT / rel).exists()
     for cfg in (ROOT / "src" / "repro" / "configs").glob("*.py"):
