@@ -20,8 +20,27 @@ its Python wrapper, and writing the row log-sum-exp for the backward
 ("lse").  Where ``cuobjdump`` is found beside ``nvcc`` it also counts the
 instructions of the two builds' kernels without a prefix at each head dim
 that differ, with constant-bank offsets masked (an added kernel parameter
-moves them).  Prints the card's name and power limit first.  Exits
-non-zero without a card or if a build or launch fails.
+moves them).
+
+    git show <commit>:src/repro_torch/kernels/csrc/flash_attention_bwd.cu \\
+        > build/parent_flash_attention_bwd.cu
+    python3 attention_ab.py --bwd-parent build/parent_flash_attention_bwd.cu
+
+``--bwd-parent`` does the same for the backward: the other
+``flash_attention_bwd.cu`` is built with this tree's flags, and both C
+entry points get the same arguments (q, k, v, o, dO and lse, o and lse
+from this tree's forward, and one scratch as large as either side needs)
+at the causal shapes of ``BWD_SHAPES`` (from ``chip_smoke.ATTN_BWD_SHAPES``,
+q scaled as there), timed in ``TURNS``.  It prints each side's medians,
+each side's normalised error of dq, dk and dv against
+``flash_attention_bwd_plain`` (bit-equality with the other side is not
+expected: the two sum in other orders), whether two calls of a side are
+bit-equal, the time of ``scaled_dot_product_attention``'s backward on the
+same inputs, and, where ``cuobjdump`` is found, how many ``HGMMA``,
+``HMMA``, ``UTMALDG`` and ``UBLKCP`` instructions each backward kernel of
+either build holds.  Either option may be given alone.  Prints the card's
+name and power limit first.  Exits non-zero without a card or if a build
+or launch fails.
 """
 
 from __future__ import annotations
@@ -44,6 +63,10 @@ SHAPES = (("serve", (8, 2048, 32, 8, 80, 4096)),
           ("dh64", (8, 2048, 8, 8, 64, None)),
           ("dh128", (8, 2048, 16, 8, 128, None)))
 TURNS = ("other", "this", "this", "other") * 4
+# The backward's causal shapes, by their names in chip_smoke.ATTN_BWD_SHAPES.
+BWD_SHAPES = ("danube", "recurrentgemma", "internvl_prefix", "dh160_padded")
+# SASS instructions counted in each backward kernel.
+BWD_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
 def sass(cuobjdump: str, lib: Path, dh: int) -> list:
@@ -61,16 +84,39 @@ def sass(cuobjdump: str, lib: Path, dh: int) -> list:
     return []
 
 
+def kernel_opcodes(cuobjdump: str, lib: Path, pattern: str,
+                   label) -> dict:
+    """Per kernel of ``lib`` whose mangled name matches ``pattern``, by its
+    ``label`` ("name<template arguments>"): how many instructions of each
+    of ``BWD_OPCODES`` it holds."""
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", out)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if re.search(pattern, name):
+            ops = re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body)
+            counts["%s<%s>" % label(name)] = {
+                op: sum(o == op for o in ops) for op in BWD_OPCODES}
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, required=True,
+    ap.add_argument("--parent", type=Path,
                     help="another flash_attention.cu of the same C interface")
+    ap.add_argument("--bwd-parent", type=Path,
+                    help="another flash_attention_bwd.cu of the same C "
+                         "interface")
     ap.add_argument("--prefix-arg", action="store_true",
                     help="the other source's entry point takes a prefix")
     ap.add_argument("--lse-arg", action="store_true",
                     help="the other source's entry point takes an lse "
                          "pointer after o")
     args = ap.parse_args(argv)
+    if args.parent is None and args.bwd_parent is None:
+        ap.error("give --parent, --bwd-parent or both")
 
     import torch
 
@@ -85,6 +131,18 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    results = {}
+    if args.parent is not None:
+        forward_ab(args, torch, chip_smoke, build, fa, results)
+    if args.bwd_parent is not None:
+        backward_ab(args.bwd_parent, torch, chip_smoke, build, fa, results)
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+def forward_ab(args, torch, chip_smoke, build, fa, results: dict):
+    """This tree's forward kernel against ``args.parent`` at ``SHAPES``,
+    then the two builds' SASS; into ``results``."""
     this_lib = build.build(("flash_attention",))["flash_attention"]
     other_lib = build.BUILD_DIR / "probe" / "libflash_attention_other.so"
     other_lib.parent.mkdir(parents=True, exist_ok=True)
@@ -126,7 +184,6 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    results = {}
     for name, (B, S, H, KV, dh, window) in SHAPES:
         q, k, v = (torch.randn((B, S, n, dh), generator=gen,
                                device=dev).to(torch.bfloat16)
@@ -165,8 +222,116 @@ def main(argv=None) -> int:
         print(f"attention_ab sass dh {dh}, no prefix, no lse: other "
               f"{len(a)} instructions, this {len(b)}, {len(diff)} lines "
               "differ (constant-bank offsets masked)", flush=True)
-    print(json.dumps(results), flush=True)
-    return 0
+
+
+def backward_ab(parent: Path, torch, chip_smoke, build, fa, results: dict):
+    """This tree's backward kernels against the ``flash_attention_bwd.cu``
+    at ``parent`` at ``BWD_SHAPES``; into ``results``."""
+    this_lib = build.build(("flash_attention_bwd",))["flash_attention_bwd"]
+    other_lib = build.BUILD_DIR / "probe" / "libflash_attention_bwd_other.so"
+    other_lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.flags("flash_attention_bwd"),
+                    "-I", str(build.CSRC), "-o", str(other_lib), str(parent)],
+                   check=True)
+    libs = {"other": ctypes.CDLL(str(other_lib)),
+            "this": ctypes.CDLL(str(this_lib))}
+    for lib in libs.values():
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.POINTER(ctypes.c_int64)] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    scratch_floats = libs["this"].flash_attention_bwd_scratch_floats
+    scratch_floats.argtypes = [ctypes.c_int64] * 3
+    scratch_floats.restype = ctypes.c_int64
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {key: rest for key, *rest in chip_smoke.ATTN_BWD_SHAPES}
+    for name in BWD_SHAPES:
+        (B, Sq, Sk, H, KV, dh), causal, window, prefix = shapes[name]
+        kdh = fa.kernel_head_dim(dh)
+        q = torch.randn((B, Sq, H, dh), generator=gen, device=dev)
+        q = (q * chip_smoke.ATTN_EDGE_Q_SCALE).to(torch.bfloat16)
+        k, v = (torch.randn((B, Sk, KV, dh), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        do = torch.randn((B, Sq, H, dh), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                         prefix=prefix, return_lse=True)
+        want = fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, window=window,
+            bidirectional_prefix=prefix)
+        ins = [fa.pad_head_dim(t, kdh) for t in (q, k, v, o, do)]
+        outs = {side: [torch.empty_like(t) for t in ins[:3]] for side in libs}
+        scratch = torch.empty(max(scratch_floats(B, H, Sq), B * H * Sq),
+                              dtype=torch.float32, device=dev)
+        shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, kdh)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def raw(side):
+            """A call of one side's entry point, its arguments made once."""
+            fn = libs[side].flash_attention_bwd_launch
+            dq, dk, dv = outs[side]
+            strides = (ctypes.c_int64 * 24)(*(
+                s for t in (*ins, dq, dk, dv)
+                for s in (t.stride(0), t.stride(1), t.stride(2))))
+            ptrs = [t.data_ptr() for t in ins[:4]] + [
+                ins[4].data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+
+            def call():
+                rc = fn(*ptrs, shape, strides, int(causal), int(window or 0),
+                        int(prefix), float(dh ** -0.5), stream)
+                if rc != 0:
+                    raise RuntimeError(f"the {side} backward's launch "
+                                       f"failed: {rc}")
+            return call
+
+        calls = {side: raw(side) for side in libs}
+        errs, twice = {}, {}
+        for side, call in calls.items():
+            call()
+            first = [t[..., :dh].clone() for t in outs[side]]
+            call()
+            twice[side] = all(torch.equal(a, t[..., :dh])
+                              for a, t in zip(first, outs[side]))
+            errs[side] = {n: chip_smoke.norm_err(a, b) for n, a, b in
+                          zip(("dq", "dk", "dv"), first, want)}
+            del first
+        times = {"other": [], "this": []}
+        for turn in TURNS:
+            times[turn].append(chip_smoke.event_ms(torch, calls[turn], 5))
+        med = {side: sorted(ts)[len(ts) // 2] for side, ts in times.items()}
+        sdpa = chip_smoke.sdpa_bwd_ms(torch, q, k, v, do, causal, window,
+                                      prefix)
+        results[f"bwd_{name}"] = {"median_ms": med, "norm_errs": errs,
+                                  "bit_equal_twice": twice, "sdpa_bwd_ms": sdpa,
+                                  **times}
+        print(f"attention_ab backward {name}: B {B} Sq {Sq} Sk {Sk} H {H} "
+              f"KV {KV} dh {dh} (kernel dh {kdh}) causal window {window} "
+              f"prefix {prefix}: "
+              + "; ".join(f"{side} {['%.4f' % t for t in sorted(ts)]} ms "
+                          f"(median {med[side]:.4f}), norm err "
+                          + ", ".join(f"{n} {e:.3e}"
+                                      for n, e in errs[side].items())
+                          + f", two calls bit-equal {twice[side]}"
+                          for side, ts in times.items())
+              + f"; sdpa backward {sdpa} ms; this/other "
+              f"{med['this'] / med['other']:.3f}", flush=True)
+        del q, k, v, do, o, lse, want, ins, outs, scratch
+        torch.cuda.empty_cache()
+
+    cuobjdump = shutil.which("cuobjdump", path=str(Path(build.nvcc()).parent))
+    if cuobjdump is not None:
+        for side, lib in (("other", other_lib), ("this", this_lib)):
+            counts = kernel_opcodes(cuobjdump, lib, r"flash_bwd_",
+                                    chip_smoke.kernel_label)
+            results[f"bwd_sass_{side}"] = counts
+            for kernel, ops in counts.items():
+                print(f"attention_ab sass {side} {kernel}: "
+                      + ", ".join(f"{op} {n}" for op, n in ops.items()),
+                      flush=True)
 
 
 if __name__ == "__main__":

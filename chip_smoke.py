@@ -9,6 +9,8 @@ without the final result line):
 
 1. build — ``nvcc`` compiles every CUDA kernel of the port from
    ``src/repro_torch/kernels/csrc/`` (one process per source, all at once);
+   ptxas's registers, stack and spills of each backward kernel, none of
+   the last two allowed at dh 64, 80 and 128;
 2. kernel — the ``dvfs_opt`` CUDA kernel against its plain torch version
    on the card, on a 1,048,576-row fuzz matrix made from ``--seed`` plus the
    app-library rows, and on the rows of ``dvfs_opt.edge_rows`` (a NaN in
@@ -79,8 +81,9 @@ without the final result line):
    a ragged edge input, all with q x4; plain renderings of four faults the
    bar must catch (the delta term dropped, the causal mask one key off or
    the last key dropped, the GQA group sum over head 0 only, the scale
-   applied twice to dK); each timed beside the plain version, the backward
-   of ``scaled_dot_product_attention`` and the bound;
+   applied twice to dK); two calls on the same inputs bit-equal; each
+   timed beside the plain version, the backward of
+   ``scaled_dot_product_attention`` and the bound;
 12. train danube — the training path: h2o-danube-1.8b at full width and
    depth (24 layers), B 8, S 2048, ``succ`` data, the reference launcher's
    AdamW and schedule, remat on: the first step's loss and gradient norm
@@ -113,8 +116,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -633,9 +638,32 @@ def main(argv=None) -> int:
 
     # ---- phase 1: build.
     t = time.perf_counter()
-    build.build(verbose=True)
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(log):
+            build.build(verbose=True)
+    finally:
+        print(log.getvalue(), end="", file=sys.stderr, flush=True)
     print(f"phase build: {time.perf_counter() - t:.2f} s for "
           f"{len(build.KERNELS)} kernel(s) {build.KERNELS}", flush=True)
+    bwd = [row for row in ptxas_table(log.getvalue())
+           if row["kernel"].startswith("flash_bwd")]
+    for row in bwd:
+        print(f"phase build ptxas {row['kernel']}<{row['args']}>: "
+              f"{row['registers']} registers, {row['stack']} bytes stack, "
+              f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
+              "stores / loads", flush=True)
+    # The backward's kernels (dQ and dK/dV, with and without a prefix, at
+    # four head dims) run with no stack and no spills at the head dims the
+    # models train at; dh 256 is held by its time.
+    checks.expect(len(bwd) == 2 * 2 * 4,
+                  f"build: ptxas lines of {len(bwd)} backward kernels, 16 "
+                  "expected")
+    spilled = [f"{row['kernel']}<{row['args']}>" for row in bwd
+               if row["args"].split(",")[0] in ("64", "80", "128")
+               and (row["stack"] or row["spill_stores"]
+                    or row["spill_loads"])]
+    checks.expect(not spilled, f"build: stack or spills in {spilled}")
 
     # ---- phase 2: the kernel against its plain version on the card.
     mat = fuzz_matrix(np, dvfs, tasks, args.seed, FUZZ_ROWS)
@@ -1575,6 +1603,45 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
                                    split.items()}}
 
 
+def kernel_label(mangled: str) -> tuple:
+    """(name, template arguments) of a kernel's mangled name:
+    ("flash_bwd_dkdv", "80, prefix") for ``..._flash_bwd_dkdvILi80ELb1EEEv
+    ...``; the flags are the prefix's and then the lse's."""
+    k = re.search(r"\d+(flash_\w+?)(?:I(.*?)E)?(?:E?v14|E?NS|Ev)", mangled)
+    if k is None:
+        return mangled, ""
+    found = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
+    flags = [v for kind, v in found if kind == "b"]
+    args = [v for kind, v in found if kind == "i"] + [
+        name if v == "1" else f"no {name}"
+        for name, v in zip(("prefix", "lse"), flags)]
+    return k.group(1), ", ".join(args)
+
+
+def ptxas_table(log: str) -> list:
+    """Per kernel in ``ptxas -v`` output: its name and template arguments
+    (``kernel_label``), registers, stack frame and spill bytes."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, row = m.group(1), {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            row = dict(zip(("stack", "spill_stores", "spill_loads"),
+                           map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernel, args = kernel_label(name)
+            rows.append({"kernel": kernel, "args": args,
+                         "registers": int(m.group(1)), **row})
+            name = None
+    return rows
+
+
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
     from repro_torch.kernels import dvfs_opt, flash_attention, ssd_scan
@@ -1615,7 +1682,12 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
             return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
                                                prefix=prefix, **kw)
 
-        got, want = kernel(), plain(q, k, v, o, lse, do)
+        got, again = kernel(), kernel()
+        twice = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        checks.expect(twice, f"attention backward {key}: two calls on the "
+                      "same inputs give dq, dk and dv bit-equal")
+        want = plain(q, k, v, o, lse, do)
         errs = {n: norm_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
                                                      got, want)}
         abs_err = max((a.float() - b.float()).abs().max().item()
@@ -1660,6 +1732,7 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
         out[key] = {"max_abs_err": abs_err, "norm_errs": errs, "ms": k_ms,
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib_ms, "fault_norm_errs": faults,
+                    "bit_equal_twice": twice,
                     "shape": [B, Sq, Sk, H, KV, dh,
                               "causal" if causal else "non-causal", window,
                               prefix, f"q x{ATTN_EDGE_Q_SCALE}"],
@@ -1670,7 +1743,8 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
               f"{'causal' if causal else 'non-causal'} window {window} "
               f"prefix {prefix}, q x{ATTN_EDGE_Q_SCALE}: norm err "
               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-              + f", max abs err {abs_err:.3e}; kernel {k_ms:.4f} ms, plain "
+              + f", max abs err {abs_err:.3e}, two calls bit-equal {twice}"
+              f"; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, sdpa backward {lib}, bound {b_ms:.4f} ms "
               f"({b_by}), kernel at {b_ms / k_ms:.1%} of the bound; plain "
               "renderings of faults, norm err against the right answer: "

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers and the
 stream as ``void*``), so it compiles in seconds without PyTorch's headers.
 The shared library lands in ``build/kernels/`` at the root of the checkout
 (``.gitignore`` lists ``build/``), under a name that carries a hash of the
-source and the flags: an edited source never loads a stale library.  A
-build happens at first use, inside the call that needs the kernel; this
-module imports without ``nvcc`` or a card.
+source, of every header beside it (``csrc/*.cuh``, which the sources
+include) and of the flags: an edited source or header never loads a stale
+library.  A build happens at first use, inside the call that needs the
+kernel; this module imports without ``nvcc`` or a card.
 
     python -m repro_torch.kernels.build        # build every kernel now
 """
@@ -61,8 +62,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to under its :func:`flags`."""
+    """Where ``csrc/<name>.cu`` builds to under its :func:`flags`: the name
+    carries a hash of the source, of every ``csrc/*.cuh`` and of the
+    flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

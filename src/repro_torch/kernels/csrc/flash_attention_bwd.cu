@@ -15,66 +15,92 @@
 //         own (batch, seq, head) element strides, a unit dh stride and
 //         16-byte aligned rows; lse [B, H, Sq] float32 in natural-log units
 //         (the forward's m * scale + log(l); +inf where l = 0).
-// Output: dq with q's layout, dk/dv with k's and v's, bf16; delta [B, H, Sq]
-//         float32 scratch.
+// Output: dq with q's layout, dk/dv with k's and v's, bf16.
+// Scratch: float32, flash_attention_bwd_scratch_floats(B, H, Sq) of them.
 // dh is 64, 80, 128 or 256 (the forward's instantiations); the wrapper
 // zero-pads any other dh, as the forward's does.
 //
-// Three launches:
-// 1. delta = rowsum(dO * O) in float32, one warp a row;
-// 2. dK and dV: one block of 4 warps per (64 keys, kv head, batch), each
-//    warp owning 16 keys.  It loops over the g query heads of its group and
-//    over the 32-row query steps that can see its keys, recomputes
-//    P^T = exp(S^T scale - lse) from K Q^T, and accumulates dV += P^T dO,
-//    dS^T = P^T * (dP^T - delta) with dP^T = V dO^T, and dK += dS^T Q scale
-//    in float32 registers; it writes bf16 once at the end.  At dh 256 the
-//    accumulators of all columns do not fit a thread's registers, so the
-//    block runs two passes of 128 columns, recomputing S and dP in each;
-// 3. dQ: one block of 4 warps per (64 query rows, head, batch), each warp
-//    owning 16 rows, looping over 32-key steps of the rows' key range:
-//    dQ += dS K scale.
-// Two passes and no atomics: every gradient element is summed by one thread
-// in one fixed order, so a replayed step gives the same bits.
-//
-// Every product is a warp-level mma.sync m16n8k16 (bf16 in, float32
-// accumulate) on fragments read from shared memory with ldmatrix; rows are
-// padded by 16 bytes so the eight row addresses of each ldmatrix fall in
-// distinct bank groups.  P and dS are rounded to bf16 as product inputs,
-// the plain version rounds them at the same places.  The masking predicate
-// is the forward's: keys past Sk, the causal diagonal and the window's lower
-// edge, and keys below the prefix visible to every row.
-//
 // What bounds it on an H100: operations.  At the h2o-danube-1.8b training
 // shape (B 8, S 2048, H 32, KV 8, dh 80, causal) the live score entries need
-// five products of 2 B H dh per entry (S and dP recomputed, dV, dK, dQ):
-// 5 * 2 * B * H * dh * 2.1M = 430 GFLOP, 0.43 ms at the bf16 tensor-core
-// peak, against 5 x 84 MB of q, k, v, o, dO, lse, dq, dk, dv, 0.13 ms at the
-// memory rate.  This first kernel is simple and right (synchronous tile
-// loads, no wgmma, S and dP recomputed by both kernels); wgmma and TMA are
-// later work.
+// five products of 2 B H dh per entry (S, dP, dV, dK, dQ): 5 * 2 * B * H *
+// dh * 2.1M = 430 GFLOP, 0.43 ms at the bf16 tensor-core peak, against 5 x
+// 84 MB of q, k, v, o, dO, lse, dq, dk, dv, 0.13 ms at the memory rate.
+// This kernel does seven products: the dQ kernel computes S and dP again,
+// so it can reach at most 5/7 = 71% of that bound.  Next to the products,
+// every live entry costs an exp2 on the MUFU unit in each kernel and two
+// bf16 conversions; at dh 64-80 those take about half as long as the
+// entry's products, so every block runs two consumer warpgroups: one's
+// products run on the tensor cores while the other computes exponentials.
+//
+// Two launches, both on the machinery of the forward (sm90.cuh: TMA tile
+// loads of 16-column boxes with the 32-byte swizzle into an mbarrier ring,
+// wgmma products with the accumulators in registers):
+// 1. flash_bwd_dq: one block per (query tile, head, batch), the heaviest
+//    query tiles of the causal mask (the last) launched first.  The
+//    producer warp loads the tile's Q, dO and O once, then keeps a ring of
+//    64-key K/V tiles in flight.  Two consumer warpgroups of 64 rows each
+//    (one at dh 256; setmaxnreg gives them 240 registers a thread, the
+//    producer's warpgroup 24) first take delta = rowsum(dO * O) of their
+//    rows from the same swizzled tiles and write it, with lse * log2(e),
+//    into a scratch padded to whole 128-row tiles (+inf and 0 on the pad
+//    rows, so a tile past Sq needs no mask: its P is exp2(-inf) = 0).  Per
+//    K/V tile they compute S = Q K^T and dP = dO V^T, P = exp2(S scale
+//    log2(e) - lse log2(e)) and dS = P (dP - delta) in registers, and
+//    dQ += dS K with dS rounded to bf16 as the A operand from registers
+//    and the K tile as an MN-major B operand (the forward's P V).  Up to dh
+//    128, Q and dO stay in registers as A fragments, so S and dP read only
+//    the K and V tiles from shared memory;
+// 2. flash_bwd_dkdv: one block per (key tile, kv head, batch), the
+//    heaviest key tiles (the first) launched first.  One TMA load brings
+//    the tile's K and V; the producer keeps ring entries in flight, each
+//    the Q and dO tiles of 64 query rows with their lse and delta from the
+//    scratch, walking all g query heads of the group and the query tiles
+//    that can see the keys.  Two consumer warpgroups of 64 keys each
+//    compute, per entry, S^T = K Q^T and dP^T = V dO^T (K and V as A
+//    fragments in registers up to dh 80, else from shared memory, K-major
+//    like Q and dO), P^T in registers, dV += P^T dO with P^T rounded to
+//    bf16 as the A operand from registers and dO as an MN-major B operand,
+//    dS^T = P^T (dP^T - delta), and dK += dS^T Q the same way: four
+//    products, the GQA group's sum kept in float32 registers, bf16 written
+//    once.  At dh 256 the dK and dV accumulators of 64 keys would be 256
+//    registers a thread, so the two warpgroups split the work over the
+//    same 64 keys: one computes S^T and dV, the other dP^T and dK, and the
+//    first hands P^T (float32, 16 KB) to the second through shared memory
+//    under two named barriers.  One pass, nothing recomputed.
+// A tile is masked element by element only where an edge cuts it (the
+// causal diagonal, the window's lower edge, the prefix's edge, the ragged
+// Sk), classified per warpgroup in integer arithmetic as the forward does;
+// a warpgroup skips a tile that holds none of its live entries.  P and dS
+// are rounded to bf16 as product inputs where the plain version rounds
+// them.
+//
+// Deterministic: no atomics.  Every dK and dV element is summed by one
+// thread over the group's heads and query tiles in a fixed order, every dQ
+// element by one thread over its key tiles, every delta by four threads in
+// a fixed shuffle order; a replayed step gives the same bits.
+//
+// Tried on an H100 and left out (source variants timed in turns against
+// this one, PERF.md section 6): leaving each entry's last products in
+// flight until the next entry's first are issued (3-20% slower); the two
+// consumer warpgroups issuing their products in strict turns (10-19%
+// slower at dh 80, and wrong dK/dV at dh 64); 128-key dQ tiles at dh 64-80
+// and three dQ consumer warpgroups there (at most 5% either way); a
+// two-stage ring in the dK/dV kernel (no different).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kKeys = 64;      // keys of a dK/dV block
-constexpr int kQStep = 32;     // query rows of one step there
-constexpr int kRows = 64;      // query rows of a dQ block
-constexpr int kKStep = 32;     // keys of one step there
+using namespace sm90;
 
-typedef __nv_bfloat16 bf16;
+constexpr int kPad = 128;  // scratch rows of a head: Sq rounded up to this
 
 struct Params {
-  const bf16 *q, *k, *v, *o, *dout;
-  const float* lse;
-  float* delta;
+  const float* lse;  // [B, H, Sq], natural-log units
+  float* lse2;       // scratch [B, H, SqP]: lse * log2(e), +inf past Sq
+  float* delta;      // scratch [B, H, SqP]: rowsum(dO * O), 0 past Sq
   bf16 *dq, *dk, *dv;
-  int B, H, KV, Sq, Sk, dh;
+  int B, H, KV, Sq, Sk, SqP;
   // (batch, seq, head) element strides of q, k, v, o, dO, dq, dk, dv
   int64_t st[8][3];
   int causal, window, prefix;  // window 0: none; prefix 0: none
@@ -83,501 +109,714 @@ struct Params {
 
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV };
 
+// The dK/dV kernel's tiles and shared memory (bytes from a 1024-aligned
+// base) at one head dim.
 template <int DH>
-struct Cfg {
-  static constexpr int kLd = DH + 8;               // shared row, elements
-  static constexpr int kCols = DH > 128 ? 128 : DH;  // dK/dV columns a pass
-  static constexpr int kPasses = DH / kCols;
+struct KvCfg {
+  static constexpr bool kSplit = DH > 128;  // see the note at the top
+  static constexpr int kKeys = kSplit ? 64 : 128;  // keys of a block
+  static constexpr int kBq = 64;                   // query rows of an entry
+  static constexpr int kStages = kSplit ? 2 : 3;
+  static constexpr int kThreads = 384;  // 2 consumer warpgroups + producer
+  // K and V of a warpgroup's keys held as A fragments in registers (S^T and
+  // dP^T then read only Q and dO from shared memory), where they fit.
+  static constexpr bool kRegA = DH <= 80;
+  static constexpr int kKeyBox = kKeys * kBox * 2;  // one [kKeys, 16] box
+  static constexpr int kQBox = kBq * kBox * 2;      // one [kBq, 16] box
+  static constexpr int kTileKV = kKeys * DH * 2;
+  static constexpr int kTileQ = kBq * DH * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileKV;
+  static constexpr int kRing = 2 * kTileKV;  // stage s: Q, then dO
+  static constexpr int kRows = kRing + kStages * 2 * kTileQ;  // lse2, delta
+  static constexpr int kX = kRows + kStages * 2 * kBq * 4;   // P^T handover
+  static constexpr int kBar = kX + (kSplit ? 64 * kBq * 4 : 0);
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// ---- helpers --------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats rounded to bf16 and packed, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a
-// row-major shared tile (row stride ld elements).
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], uint32_t tile, int ld,
-                                       int r0, int c0, int lane) {
-  const int row = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col = c0 + (lane >> 4) * 8;
-  ldsm_x4(a, tile + (row * ld + col) * 2);
-}
-
-// B fragments of two n8 tiles, n in [n0, n0 + 16), over k in [k0, k0 + 16),
-// from a shared tile stored [n][k] row-major: b[0..1] the first tile's,
-// b[2..3] the second's.
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], uint32_t tile,
-                                          int ld, int n0, int k0, int lane) {
-  const int row = n0 + (lane & 7) + (lane >> 4) * 8;
-  const int col = k0 + ((lane >> 3) & 1) * 8;
-  ldsm_x4(b, tile + (row * ld + col) * 2);
-}
-
-// The same from a shared tile stored [k][n] row-major (transposed load).
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], uint32_t tile,
-                                          int ld, int k0, int n0, int lane) {
-  const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col = n0 + (lane >> 4) * 8;
-  ldsm_x4_t(b, tile + (row * ld + col) * 2);
-}
-
-// The A fragment of k-step kk from a float32 accumulator of n8 tiles over
-// the same 16 rows (tiles 2 kk and 2 kk + 1), rounded to bf16.
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c)[N][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Rows [lo, lo + n) of one head of a [B, S, heads, DH] tensor into a shared
-// tile of row stride Cfg<DH>::kLd, zeros past `limit`.
+// The dQ kernel's.
 template <int DH>
-__device__ __forceinline__ void load_rows(bf16* tile, const bf16* g,
-                                          int64_t ss, int lo, int n,
-                                          int limit) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks of a row
-  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (lo + r < limit)
-      val = *reinterpret_cast<const uint4*>(g + (lo + r) * ss + c);
-    *reinterpret_cast<uint4*>(tile + r * Cfg<DH>::kLd + c) = val;
-  }
-}
+struct QCfg {
+  static constexpr int kGroups = DH > 128 ? 1 : 2;  // consumer warpgroups
+  static constexpr int kRows = 64 * kGroups;        // query rows of a block
+  static constexpr int kBk = 64;                    // keys of a ring tile
+  static constexpr int kStages = DH > 128 ? 2 : 3;
+  static constexpr int kThreads = (kGroups + 1) * 128;
+  // Q and dO of a warpgroup's rows held as A fragments in registers.
+  static constexpr bool kRegA = DH <= 128;
+  static constexpr int kRowBox = kRows * kBox * 2;
+  static constexpr int kKeyBox = kBk * kBox * 2;
+  static constexpr int kTileQ = kRows * DH * 2;
+  static constexpr int kTileK = kBk * DH * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kTileQ;
+  static constexpr int kO = 2 * kTileQ;
+  static constexpr int kRing = 3 * kTileQ;  // stage s: K, then V
+  static constexpr int kBar = kRing + kStages * 2 * kTileK;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kPad % kRows == 0, "a block's rows stay inside the scratch");
+};
 
-// The forward's mask: is key `col` visible to query `row`?
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kReady = 1, kFree = 2;  // named barriers of the P^T handover
+
+// Roles of a dK/dV consumer warpgroup: all four products, or (dh 256) S^T
+// and dV, or dP^T and dK.
+enum { kBoth, kSV, kDPK };
+
+// The forward's mask: is key `col` visible to query `row`?  (Rows past Sq
+// need no test: their lse is +inf in the scratch.)
 template <bool kPrefix>
 __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
-  if (row >= p.Sq || col >= p.Sk) return false;
+  if (col >= p.Sk) return false;
   if (kPrefix && col < p.prefix) return true;
   if (p.causal && row < col) return false;
   if (p.window > 0 && row - col >= p.window) return false;
   return true;
 }
 
-__device__ __forceinline__ const bf16* head_ptr(const Params& p, int t,
-                                                const bf16* base, int b,
-                                                int h) {
-  return base + b * p.st[t][0] + h * p.st[t][2];
-}
-
-// ---- 1. delta = rowsum(dO * O) ----------------------------------------------
-
-__global__ void __launch_bounds__(256) flash_bwd_delta(const Params p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + warp;
-  if (row >= static_cast<int64_t>(p.B) * p.H * p.Sq) return;
-  const int s = static_cast<int>(row % p.Sq);
-  const int bh = static_cast<int>(row / p.Sq);
-  const int h = bh % p.H, b = bh / p.H;
-  const bf16* o = head_ptr(p, kO, p.o, b, h) + s * p.st[kO][1];
-  const bf16* d = head_ptr(p, kDO, p.dout, b, h) + s * p.st[kDO][1];
-  float acc = 0.f;
-  for (int c = lane; c < p.dh; c += 32)
-    acc += __bfloat162float(o[c]) * __bfloat162float(d[c]);
+// A float accumulator of 64 columns rounded to bf16 A fragments, k-step by
+// k-step: its n8 tiles 2 kk and 2 kk + 1 are k-step kk.
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4],
+                                         const float (&c)[32]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[row] = acc;
-}
-
-// ---- 2. dK and dV -----------------------------------------------------------
-
-template <int DH, bool kPrefix>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(const Params p) {
-  constexpr int kLd = Cfg<DH>::kLd, kCols = Cfg<DH>::kCols;
-  constexpr int kN = kQStep / 8;  // n8 tiles of S^T over the query step
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [kKeys][kLd]
-  bf16* sv = sk + kKeys * kLd;                    // [kKeys][kLd]
-  bf16* sq = sv + kKeys * kLd;                    // [kQStep][kLd]
-  bf16* sdo = sq + kQStep * kLd;                  // [kQStep][kLd]
-  float* slse = reinterpret_cast<float*>(sdo + kQStep * kLd);  // log2 units
-  float* sdelta = slse + kQStep;
-  const uint32_t a_k = smem_addr(sk), a_v = smem_addr(sv);
-  const uint32_t a_q = smem_addr(sq), a_do = smem_addr(sdo);
-
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int g = p.H / p.KV;
-  const int k_lo = blockIdx.x * kKeys;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int wk = k_lo + warp * 16;  // this warp's first key
-
-  load_rows<DH>(sk, head_ptr(p, kK, p.k, b, kvh), p.st[kK][1], k_lo, kKeys,
-                p.Sk);
-  load_rows<DH>(sv, head_ptr(p, kV, p.v, b, kvh), p.st[kV][1], k_lo, kKeys,
-                p.Sk);
-
-  // The query rows that can see a key of the block: all of them for a block
-  // holding a prefix key, else from the diagonal (causal) to the window's
-  // reach.
-  const bool block_prefix = kPrefix && k_lo < p.prefix;
-  int q_begin = 0, q_end = p.Sq;
-  if (!block_prefix) {
-    if (p.causal) q_begin = k_lo;
-    if (p.window > 0) q_end = min(q_end, k_lo + kKeys - 1 + p.window);
-  }
-  q_begin = (q_begin / kQStep) * kQStep;
-  const bool warp_prefix = kPrefix && wk < p.prefix;
-
-  for (int pass = 0; pass < Cfg<DH>::kPasses; ++pass) {
-    const int c_lo = pass * kCols;
-    float dk[kCols / 8][4], dv[kCols / 8][4];
-#pragma unroll
-    for (int n = 0; n < kCols / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-    for (int j = 0; j < g; ++j) {
-      const int h = kvh * g + j;
-      for (int q0 = q_begin; q0 < q_end; q0 += kQStep) {
-        __syncthreads();  // the last step's tiles are consumed
-        load_rows<DH>(sq, head_ptr(p, kQ, p.q, b, h), p.st[kQ][1], q0, kQStep,
-                      p.Sq);
-        load_rows<DH>(sdo, head_ptr(p, kDO, p.dout, b, h), p.st[kDO][1], q0,
-                      kQStep, p.Sq);
-        if (threadIdx.x < kQStep) {
-          const int r = q0 + threadIdx.x;
-          const int64_t i = (static_cast<int64_t>(b) * p.H + h) * p.Sq + r;
-          slse[threadIdx.x] = r < p.Sq ? p.lse[i] * kLog2e : __int_as_float(0x7f800000);
-          sdelta[threadIdx.x] = r < p.Sq ? p.delta[i] : 0.f;
-        }
-        __syncthreads();
-        // Does any query of the step see a key of this warp?
-        const bool live =
-            wk < p.Sk &&
-            (warp_prefix ||
-             ((!p.causal || wk <= q0 + kQStep - 1) &&
-              (p.window <= 0 || q0 - (wk + 15) < p.window)));
-        if (!live) continue;
-
-        // S^T = K Q^T: 16 keys x kQStep queries.
-        float s[kN][4];
-#pragma unroll
-        for (int n = 0; n < kN; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          uint32_t a[4];
-          frag_a(a, a_k, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-          for (int np = 0; np < kN / 2; ++np) {
-            uint32_t bb[4];
-            frag_b_nk(bb, a_q, kLd, np * 16, kk * 16, lane);
-            mma(s[2 * np], a, bb[0], bb[1]);
-            mma(s[2 * np + 1], a, bb[2], bb[3]);
-          }
-        }
-        // P^T = exp(S^T scale - lse), zero where masked.
-#pragma unroll
-        for (int n = 0; n < kN; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = wk + gr + (e >> 1) * 8;
-            const int qi = n * 8 + 2 * t + (e & 1);
-            s[n][e] = visible<kPrefix>(p, q0 + qi, key)
-                          ? ex2(s[n][e] * p.scale_log2 - slse[qi])
-                          : 0.f;
-          }
-        // dV += P^T dO over this pass's columns.
-#pragma unroll
-        for (int kk = 0; kk < kQStep / 16; ++kk) {
-          uint32_t a[4];
-          acc_to_a(a, s, kk);
-#pragma unroll
-          for (int np = 0; np < kCols / 16; ++np) {
-            uint32_t bb[4];
-            frag_b_kn(bb, a_do, kLd, kk * 16, c_lo + np * 16, lane);
-            mma(dv[2 * np], a, bb[0], bb[1]);
-            mma(dv[2 * np + 1], a, bb[2], bb[3]);
-          }
-        }
-        // dP^T = V dO^T, then dS^T = P^T (dP^T - delta).
-        float ds[kN][4];
-#pragma unroll
-        for (int n = 0; n < kN; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          uint32_t a[4];
-          frag_a(a, a_v, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-          for (int np = 0; np < kN / 2; ++np) {
-            uint32_t bb[4];
-            frag_b_nk(bb, a_do, kLd, np * 16, kk * 16, lane);
-            mma(ds[2 * np], a, bb[0], bb[1]);
-            mma(ds[2 * np + 1], a, bb[2], bb[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < kN; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[n][e] = s[n][e] * (ds[n][e] - sdelta[n * 8 + 2 * t + (e & 1)]);
-        // dK += dS^T Q over this pass's columns (scaled at the end).
-#pragma unroll
-        for (int kk = 0; kk < kQStep / 16; ++kk) {
-          uint32_t a[4];
-          acc_to_a(a, ds, kk);
-#pragma unroll
-          for (int np = 0; np < kCols / 16; ++np) {
-            uint32_t bb[4];
-            frag_b_kn(bb, a_q, kLd, kk * 16, c_lo + np * 16, lane);
-            mma(dk[2 * np], a, bb[0], bb[1]);
-            mma(dk[2 * np + 1], a, bb[2], bb[3]);
-          }
-        }
-      }
-    }
-
-    bf16* gk = p.dk + b * p.st[kDK][0] + kvh * p.st[kDK][2];
-    bf16* gv = p.dv + b * p.st[kDV][0] + kvh * p.st[kDV][2];
-#pragma unroll
-    for (int n = 0; n < kCols / 8; ++n) {
-      const int c = c_lo + n * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int key = wk + gr + half * 8;
-        if (key >= p.Sk) continue;
-        *reinterpret_cast<uint32_t*>(gk + key * p.st[kDK][1] + c) =
-            pack_bf16(dk[n][2 * half] * p.scale, dk[n][2 * half + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(gv + key * p.st[kDV][1] + c) =
-            pack_bf16(dv[n][2 * half], dv[n][2 * half + 1]);
-      }
-    }
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2 + 0] = pack_bf16(c[4 * j], c[4 * j + 1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(c[4 * j + 2], c[4 * j + 3]);
   }
 }
 
-// ---- 3. dQ ------------------------------------------------------------------
+// The two bf16 of a packed word as floats, the low half first.
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
 
-template <int DH, bool kPrefix>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Params p) {
-  constexpr int kLd = Cfg<DH>::kLd;
-  constexpr int kN = kKStep / 8;  // n8 tiles of S over the key step
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kRows][kLd]
-  bf16* sdo = sq + kRows * kLd;                   // [kRows][kLd]
-  bf16* sk = sdo + kRows * kLd;                   // [kKStep][kLd]
-  bf16* sv = sk + kKStep * kLd;                   // [kKStep][kLd]
-  float* slse = reinterpret_cast<float*>(sv + kKStep * kLd);  // log2 units
-  float* sdelta = slse + kRows;
-  const uint32_t a_q = smem_addr(sq), a_do = smem_addr(sdo);
-  const uint32_t a_k = smem_addr(sk), a_v = smem_addr(sv);
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int q_lo = blockIdx.x * kRows;
-  const int q_hi = min(q_lo + kRows, p.Sq);  // exclusive
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int wq = q_lo + warp * 16;  // this warp's first row
-
-  load_rows<DH>(sq, head_ptr(p, kQ, p.q, b, h), p.st[kQ][1], q_lo, kRows,
-                p.Sq);
-  load_rows<DH>(sdo, head_ptr(p, kDO, p.dout, b, h), p.st[kDO][1], q_lo,
-                kRows, p.Sq);
-  if (threadIdx.x < kRows) {
-    const int r = q_lo + threadIdx.x;
-    const int64_t i = (static_cast<int64_t>(b) * p.H + h) * p.Sq + r;
-    slse[threadIdx.x] = r < p.Sq ? p.lse[i] * kLog2e : __int_as_float(0x7f800000);
-    sdelta[threadIdx.x] = r < p.Sq ? p.delta[i] : 0.f;
-  }
-
-  // The forward's key range of the block.
-  int kv_end = p.Sk;
-  if (p.causal) kv_end = min(kv_end, kPrefix ? max(q_hi, p.prefix) : q_hi);
-  int kv_begin = p.window > 0 && !kPrefix ? max(0, q_lo - p.window + 1) : 0;
-  kv_begin = (kv_begin / kKStep) * kKStep;
-
-  float dq[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kKStep) {
-    __syncthreads();  // the last step's tiles are consumed
-    load_rows<DH>(sk, head_ptr(p, kK, p.k, b, kvh), p.st[kK][1], k0, kKStep,
-                  p.Sk);
-    load_rows<DH>(sv, head_ptr(p, kV, p.v, b, kvh), p.st[kV][1], k0, kKStep,
-                  p.Sk);
-    __syncthreads();
-    const bool live =
-        wq < p.Sq &&
-        ((kPrefix && k0 < p.prefix) ||
-         ((!p.causal || k0 <= wq + 15) &&
-          (p.window <= 0 || wq - (k0 + kKStep - 1) < p.window)));
-    if (!live) continue;
-
-    // S = Q K^T: 16 rows x kKStep keys.
-    float s[kN][4];
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, a_q, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < kN / 2; ++np) {
-        uint32_t bb[4];
-        frag_b_nk(bb, a_k, kLd, np * 16, kk * 16, lane);
-        mma(s[2 * np], a, bb[0], bb[1]);
-        mma(s[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ri = warp * 16 + gr + (e >> 1) * 8;
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = visible<kPrefix>(p, q_lo + ri, key)
-                      ? ex2(s[n][e] * p.scale_log2 - slse[ri])
-                      : 0.f;
-      }
-    // dP = dO V^T, then dS = P (dP - delta).
-    float ds[kN][4];
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, a_do, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < kN / 2; ++np) {
-        uint32_t bb[4];
-        frag_b_nk(bb, a_v, kLd, np * 16, kk * 16, lane);
-        mma(ds[2 * np], a, bb[0], bb[1]);
-        mma(ds[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] =
-            s[n][e] * (ds[n][e] - sdelta[warp * 16 + gr + (e >> 1) * 8]);
-    // dQ += dS K (scaled at the end).
-#pragma unroll
-    for (int kk = 0; kk < kKStep / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, ds, kk);
-#pragma unroll
-      for (int np = 0; np < DH / 16; ++np) {
-        uint32_t bb[4];
-        frag_b_kn(bb, a_k, kLd, kk * 16, np * 16, lane);
-        mma(dq[2 * np], a, bb[0], bb[1]);
-        mma(dq[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
-
-  bf16* gq = p.dq + b * p.st[kDQ][0] + h * p.st[kDQ][2];
+// bf16 rows of an accumulator over 64 rows x DH columns: this thread's rows
+// r0 and r0 + 8, times `mul`, rows at or past `limit` skipped.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* g, int64_t ss, int r0,
+                                           int limit, const float (&a)[DH / 2],
+                                           float mul, int t) {
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
     const int c = n * 8 + 2 * t;
+    if (r0 < limit)
+      *reinterpret_cast<uint32_t*>(g + r0 * ss + c) =
+          pack_bf16(a[4 * n] * mul, a[4 * n + 1] * mul);
+    if (r0 + 8 < limit)
+      *reinterpret_cast<uint32_t*>(g + (r0 + 8) * ss + c) =
+          pack_bf16(a[4 * n + 2] * mul, a[4 * n + 3] * mul);
+  }
+}
+
+// ---- dK and dV -----------------------------------------------------------
+
+// One consumer warpgroup of the dK/dV kernel over the ring's entries: keys
+// wk_lo ... wk_lo + 63, whose rows start `rows` bytes into each K and V box.
+template <int DH, bool kPrefix, int kRole>
+__device__ __forceinline__ void kv_consumer(const Params& p, uint32_t base,
+                                            const unsigned char* smem, int b,
+                                            int kvh, int wk_lo, uint32_t rows,
+                                            int qt_begin, int qt_end) {
+  using C = KvCfg<DH>;
+  constexpr bool kS = kRole != kDPK;  // S^T, P^T and dV
+  constexpr bool kD = kRole != kSV;   // dP^T, dS^T and dK
+  constexpr int kChunks = DH / kBox;
+  const uint32_t sk = base + C::kK, sv = base + C::kV;
+  const uint32_t kv_full = base + C::kBar;
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * C::kStages;
+  float* xbuf = reinterpret_cast<float*>(
+      const_cast<unsigned char*>(smem) + C::kX);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x & 127;
+  const int wl = warp & 3, gq = lane >> 2, t = lane & 3;
+  const int key0 = wk_lo + wl * 16 + gq;  // this thread's keys: +0 and +8
+  const int g = p.H / p.KV;
+  const bool has_prefix = kPrefix && wk_lo < p.prefix;
+  const bool in_prefix = kPrefix && wk_lo + 64 <= p.prefix;
+
+  float dv[kS ? DH / 2 : 1], dk[kD ? DH / 2 : 1];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = wq + gr + half * 8;
-      if (row >= p.Sq) continue;
-      *reinterpret_cast<uint32_t*>(gq + row * p.st[kDQ][1] + c) =
-          pack_bf16(dq[n][2 * half] * p.scale, dq[n][2 * half + 1] * p.scale);
+  for (int i = 0; i < (kS ? DH / 2 : 1); ++i) dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kD ? DH / 2 : 1); ++i) dk[i] = 0.f;
+
+  if constexpr (kRole == kDPK) named_arrive<kFree, 256>();  // buffer is free
+  mbar_wait(kv_full, 0);
+  // This warp's 16 keys of K and V as A fragments, k-step by k-step.
+  uint32_t kf[C::kRegA ? kChunks : 1][4], vf[C::kRegA ? kChunks : 1][4];
+  if constexpr (C::kRegA) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      a_frag_sw32(kf[c], sk + rows + c * C::kKeyBox, wl * 16 + gq, t);
+      a_frag_sw32(vf[c], sv + rows + c * C::kKeyBox, wl * 16 + gq, t);
     }
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < g; ++j) {
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * C::kBq;
+      mbar_wait(full0 + 8 * stage, phase);
+      // Does a query of the entry see a key of this warpgroup, and must it
+      // mask?  As the forward: a tile holding a prefix key is live for
+      // every row; one inside the prefix is cut only by Sk.
+      const bool live =
+          wk_lo < p.Sk &&
+          (has_prefix ||
+           (!(p.causal && wk_lo > q0 + C::kBq - 1) &&
+            !(p.window > 0 && q0 - (wk_lo + 63) >= p.window)));
+      if (live) {
+        const bool masked =
+            wk_lo + 64 > p.Sk ||
+            (!in_prefix &&
+             (has_prefix || (p.causal && wk_lo + 63 > q0) ||
+              (p.window > 0 && q0 + C::kBq - 1 - wk_lo >= p.window)));
+        const uint32_t sq = base + C::kRing + stage * 2 * C::kTileQ;
+        const uint32_t sdo = sq + C::kTileQ;
+        const float* slse = reinterpret_cast<const float*>(
+            smem + C::kRows + stage * 2 * C::kBq * 4);
+        const float* sdelta = slse + C::kBq;
+
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, dh/16
+        // k-steps each.
+        float s[32], dp[32];
+        wgmma_fence();
+        if constexpr (kS) {
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const uint64_t db = desc_sw32(sq + c * C::kQBox, 1, 16);
+            if constexpr (C::kRegA)
+              wgmma_rs_n64(s, kf[c], db, c > 0);
+            else
+              wgmma_ss_n64(s, desc_sw32(sk + rows + c * C::kKeyBox, 1, 16), db,
+                           c > 0);
+          }
+          wgmma_commit();
+        }
+        if constexpr (kD) {
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const uint64_t db = desc_sw32(sdo + c * C::kQBox, 1, 16);
+            if constexpr (C::kRegA)
+              wgmma_rs_n64(dp, vf[c], db, c > 0);
+            else
+              wgmma_ss_n64(dp, desc_sw32(sv + rows + c * C::kKeyBox, 1, 16),
+                           db, c > 0);
+          }
+          wgmma_commit();
+        }
+
+        uint32_t pf[4][4];
+        if constexpr (kS) {
+          if constexpr (kD)
+            wgmma_wait<1>();
+          else
+            wgmma_wait<0>();
+          fence_regs(s);
+          // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 l = *reinterpret_cast<const float2*>(
+                slse + jj * 8 + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = jj * 8 + 2 * t + (e & 1);
+              float x = ex2(fmaf(s[4 * jj + e], p.scale_log2,
+                                 -(e & 1 ? l.y : l.x)));
+              if (masked && !visible<kPrefix>(p, q0 + col, key0 + (e >> 1) * 8))
+                x = 0.f;
+              s[4 * jj + e] = x;
+            }
+          }
+          to_frags(pf, s);
+          if constexpr (kRole == kSV) {
+            named_sync<kFree, 256>();  // the other has read the last P^T
+#pragma unroll
+            for (int i = 0; i < 32; ++i) xbuf[i * 128 + tid] = s[i];
+            named_arrive<kReady, 256>();
+          }
+          // dV += P^T dO: each k-step takes 16 queries of the dO tile, all
+          // dh columns, as an MN-major operand.
+          fence_regs(dv);
+          fence_regs(pf);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_pv<DH>(dv, pf[kk],
+                         desc_sw32(sdo + kk * 16 * kBox * 2, C::kQBox >> 4, 16),
+                         8 * C::kQBox);
+          wgmma_commit();
+        }
+        if constexpr (kD) {
+          if constexpr (kS)
+            wgmma_wait<1>();
+          else
+            wgmma_wait<0>();
+          fence_regs(dp);
+          if constexpr (kRole == kDPK) {
+            named_sync<kReady, 256>();  // P^T is in the buffer
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[i] = xbuf[i * 128 + tid];
+            named_arrive<kFree, 256>();
+          }
+          // dS^T = P^T (dP^T - delta), then dK += dS^T Q.
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 d = *reinterpret_cast<const float2*>(
+                sdelta + jj * 8 + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[4 * jj + e] =
+                  s[4 * jj + e] * (dp[4 * jj + e] - (e & 1 ? d.y : d.x));
+          }
+          uint32_t df[4][4];
+          to_frags(df, dp);
+          fence_regs(dk);
+          fence_regs(df);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_pv<DH>(dk, df[kk],
+                         desc_sw32(sq + kk * 16 * kBox * 2, C::kQBox >> 4, 16),
+                         8 * C::kQBox);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(df);
+          fence_regs(dk);
+        } else {
+          wgmma_wait<0>();
+        }
+        if constexpr (kS) {
+          fence_regs(pf);
+          fence_regs(dv);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  if constexpr (kRole == kSV) named_sync<kFree, 256>();  // the last handover
+
+  if constexpr (kS)
+    store_rows<DH>(p.dv + b * p.st[kDV][0] + kvh * p.st[kDV][2],
+                   p.st[kDV][1], key0, p.Sk, dv, 1.f, t);
+  if constexpr (kD)
+    store_rows<DH>(p.dk + b * p.st[kDK][0] + kvh * p.st[kDK][2],
+                   p.st[kDK][1], key0, p.Sk, dk, p.scale, t);
+}
+
+template <int DH, bool kPrefix>
+__global__ void __launch_bounds__(KvCfg<DH>::kThreads, 1)
+    flash_bwd_dkdv(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap, const Params p) {
+  using C = KvCfg<DH>;
+  constexpr int kChunks = DH / kBox;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t kv_full = base + C::kBar;
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * C::kStages;
+
+  const int kvh = blockIdx.x % p.KV, b = blockIdx.x / p.KV;
+  const int k_lo = blockIdx.y * C::kKeys;  // causal: heaviest first
+  // The query rows that can see a key of the block: all of them for a block
+  // holding a prefix key, else from the diagonal (causal) to the window's
+  // reach.
+  int q_begin = 0, q_end = p.Sq;
+  if (!(kPrefix && k_lo < p.prefix)) {
+    if (p.causal) q_begin = min(k_lo, p.Sq);
+    if (p.window > 0) q_end = min(q_end, k_lo + C::kKeys - 1 + p.window);
+  }
+  const int qt_begin = q_begin / C::kBq;
+  const int qt_end =
+      q_end > q_begin ? (q_end + C::kBq - 1) / C::kBq : qt_begin;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // the consumers' 8 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: K and V once, then the ring of Q, dO, lse, delta.
+    reg_dealloc<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      const uint32_t sk = base + C::kK, sv = base + C::kV;
+      mbar_expect_tx(kv_full, 2 * C::kTileKV);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sk + c * C::kKeyBox, &tk, kv_full, c * kBox, k_lo, kvh, b);
+        tma_load(sv + c * C::kKeyBox, &tv, kv_full, c * kBox, k_lo, kvh, b);
+      }
+      const int g = p.H / p.KV;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < g; ++j) {
+        const int h = kvh * g + j;
+        const int64_t row0 = (static_cast<int64_t>(b) * p.H + h) * p.SqP;
+        for (int qt = qt_begin; qt < qt_end; ++qt) {
+          const uint32_t full = full0 + 8 * stage;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full, 2 * C::kTileQ + 2 * C::kBq * 4);
+          const uint32_t sq = base + C::kRing + stage * 2 * C::kTileQ;
+          const uint32_t sdo = sq + C::kTileQ;
+          for (int c = 0; c < kChunks; ++c) {
+            tma_load(sq + c * C::kQBox, &tq, full, c * kBox, qt * C::kBq, h, b);
+            tma_load(sdo + c * C::kQBox, &tdo, full, c * kBox, qt * C::kBq, h,
+                     b);
+          }
+          const uint32_t srows = base + C::kRows + stage * 2 * C::kBq * 4;
+          bulk_load(srows, p.lse2 + row0 + qt * C::kBq, C::kBq * 4, full);
+          bulk_load(srows + C::kBq * 4, p.delta + row0 + qt * C::kBq,
+                    C::kBq * 4, full);
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers.
+    reg_alloc<kConsumerRegs>();
+    if constexpr (C::kSplit) {
+      if (warp < 4)
+        kv_consumer<DH, kPrefix, kSV>(p, base, smem, b, kvh, k_lo, 0,
+                                      qt_begin, qt_end);
+      else
+        kv_consumer<DH, kPrefix, kDPK>(p, base, smem, b, kvh, k_lo, 0,
+                                       qt_begin, qt_end);
+    } else {
+      const int wg = warp >> 2;
+      kv_consumer<DH, kPrefix, kBoth>(p, base, smem, b, kvh, k_lo + 64 * wg,
+                                      wg * 64 * kBox * 2, qt_begin, qt_end);
+    }
+  }
+}
+
+// ---- dQ, delta and lse * log2(e) ------------------------------------------
+
+template <int DH, bool kPrefix>
+__device__ __forceinline__ void q_consumer(const Params& p, uint32_t base,
+                                           int b, int h, int q_lo,
+                                           int kb_begin, int kb_end) {
+  using C = QCfg<DH>;
+  using namespace sm90;
+  constexpr int kChunks = DH / kBox;
+  const uint32_t q_full = base + C::kBar;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * C::kStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, gq = lane >> 2, t = lane & 3;
+  const int wq_lo = q_lo + 64 * wg;
+  const int wq_hi = min(wq_lo + 64, p.Sq);  // exclusive; may be <= wq_lo
+  const int r0 = wq_lo + wl * 16 + gq, r1 = r0 + 8;  // this thread's rows
+  const uint32_t q_rows = base + C::kQ + wg * 64 * kBox * 2;
+  const uint32_t do_rows = base + C::kDO + wg * 64 * kBox * 2;
+  const uint32_t o_rows = base + C::kO + wg * 64 * kBox * 2;
+
+  float dq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  // This warp's 16 rows of Q and dO as A fragments, k-step by k-step, and
+  // delta = rowsum(dO * O) of rows r0 and r1 from the same fragments of dO
+  // and O (the four threads of a row hold all its columns between them).
+  uint32_t qf[C::kRegA ? kChunks : 1][4], dof[C::kRegA ? kChunks : 1][4];
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    uint32_t of[4], df[4];
+    a_frag_sw32(of, o_rows + c * C::kRowBox, wl * 16 + gq, t);
+    a_frag_sw32(df, do_rows + c * C::kRowBox, wl * 16 + gq, t);
+    if constexpr (C::kRegA) {
+      a_frag_sw32(qf[c], q_rows + c * C::kRowBox, wl * 16 + gq, t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dof[c][i] = df[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = bf16x2_to_float2(of[i]), e = bf16x2_to_float2(df[i]);
+      (i & 1 ? d1 : d0) += a.x * e.x + a.y * e.y;
+    }
+  }
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+  // lse * log2(e), +inf past Sq; both into the scratch for the dK/dV
+  // kernel, which runs after this one.
+  const int64_t lrow = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+  const float inf = __int_as_float(0x7f800000);
+  const float l0 = r0 < p.Sq ? p.lse[lrow + r0] * kLog2e : inf;
+  const float l1 = r1 < p.Sq ? p.lse[lrow + r1] * kLog2e : inf;
+  if (t == 0) {
+    const int64_t row0 = (static_cast<int64_t>(b) * p.H + h) * p.SqP;
+    p.lse2[row0 + r0] = l0;
+    p.lse2[row0 + r1] = l1;
+    p.delta[row0 + r0] = d0;
+    p.delta[row0 + r1] = d1;
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kb = kb_begin; kb < kb_end; ++kb) {
+    const int k_lo = kb * C::kBk;
+    mbar_wait(full0 + 8 * stage, phase);
+    const bool has_prefix = kPrefix && k_lo < p.prefix;
+    const bool in_prefix = kPrefix && k_lo + C::kBk <= p.prefix;
+    const bool live =
+        wq_lo < wq_hi &&
+        (has_prefix ||
+         (!(p.causal && k_lo > wq_hi - 1) &&
+          !(p.window > 0 && k_lo + C::kBk - 1 < wq_lo - p.window + 1)));
+    if (live) {
+      const bool masked =
+          k_lo + C::kBk > p.Sk ||
+          (!in_prefix &&
+           (has_prefix || (p.causal && k_lo + C::kBk - 1 > wq_lo) ||
+            (p.window > 0 && wq_hi - 1 - k_lo >= p.window)));
+      const uint32_t kt = base + C::kRing + stage * 2 * C::kTileK;
+      const uint32_t vt = kt + C::kTileK;
+
+      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys.
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const uint64_t db = desc_sw32(kt + c * C::kKeyBox, 1, 16);
+        if constexpr (C::kRegA)
+          wgmma_rs_n64(s, qf[c], db, c > 0);
+        else
+          wgmma_ss_n64(s, desc_sw32(q_rows + c * C::kRowBox, 1, 16), db,
+                       c > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const uint64_t db = desc_sw32(vt + c * C::kKeyBox, 1, 16);
+        if constexpr (C::kRegA)
+          wgmma_rs_n64(dp, dof[c], db, c > 0);
+        else
+          wgmma_ss_n64(dp, desc_sw32(do_rows + c * C::kRowBox, 1, 16), db,
+                       c > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k_lo + jj * 8 + 2 * t + (e & 1);
+          float x = ex2(fmaf(s[4 * jj + e], p.scale_log2, e < 2 ? -l0 : -l1));
+          if (masked && !visible<kPrefix>(p, e < 2 ? r0 : r1, col)) x = 0.f;
+          s[4 * jj + e] = x;
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS = P (dP - delta), then dQ += dS K with the K tile as an
+      // MN-major operand.
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dp[i] = s[i] * (dp[i] - ((i & 3) < 2 ? d0 : d1));
+      uint32_t df[4][4];
+      to_frags(df, dp);
+      fence_regs(dq);
+      fence_regs(df);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<DH>(dq, df[kk],
+                     desc_sw32(kt + kk * 16 * kBox * 2, C::kKeyBox >> 4, 16),
+                     8 * C::kKeyBox);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(df);
+      fence_regs(dq);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    if (++stage == C::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  store_rows<DH>(p.dq + b * p.st[kDQ][0] + h * p.st[kDQ][2], p.st[kDQ][1],
+                 r0, p.Sq, dq, p.scale, t);
+}
+
+template <int DH, bool kPrefix>
+__global__ void __launch_bounds__(QCfg<DH>::kThreads, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap to, const Params p) {
+  using C = QCfg<DH>;
+  constexpr int kChunks = DH / kBox;
+  constexpr int kConsumerWarps = 4 * C::kGroups;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + C::kBar;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * C::kStages;
+
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * C::kRows;  // heaviest first
+  const int q_hi = min(q_lo + C::kRows, p.Sq);               // exclusive
+  // The forward's key range of the block.
+  int kv_end = p.Sk;
+  if (p.causal) kv_end = min(kv_end, kPrefix ? max(q_hi, p.prefix) : q_hi);
+  const int kv_begin =
+      p.window > 0 && !kPrefix ? max(0, q_lo - p.window + 1) : 0;
+  const int kb_begin = kv_begin / C::kBk;
+  const int kb_end = (kv_end + C::kBk - 1) / C::kBk;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer: Q, dO and O once, then the K/V ring.
+    if constexpr (C::kGroups == 2) reg_dealloc<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(q_full, 3 * C::kTileQ);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(base + C::kQ + c * C::kRowBox, &tq, q_full, c * kBox, q_lo,
+                 h, b);
+        tma_load(base + C::kDO + c * C::kRowBox, &tdo, q_full, c * kBox,
+                 q_lo, h, b);
+        tma_load(base + C::kO + c * C::kRowBox, &to, q_full, c * kBox, q_lo,
+                 h, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = kb_begin; kb < kb_end; ++kb) {
+        const uint32_t full = full0 + 8 * stage;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full, 2 * C::kTileK);
+        const uint32_t kt = base + C::kRing + stage * 2 * C::kTileK;
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(kt + c * C::kKeyBox, &tk, full, c * kBox, kb * C::kBk, kvh,
+                   b);
+          tma_load(kt + C::kTileK + c * C::kKeyBox, &tv, full, c * kBox,
+                   kb * C::kBk, kvh, b);
+        }
+        if (++stage == C::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q_lo + 64 wg ... + 63.
+    if constexpr (C::kGroups == 2) reg_alloc<kConsumerRegs>();
+    q_consumer<DH, kPrefix>(p, base, b, h, q_lo, kb_begin, kb_end);
   }
 }
 
 // ---- host side ------------------------------------------------------------
 
 template <typename Kernel>
-cudaError_t launch_one(Kernel kernel, dim3 grid, int bytes, const Params& p,
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, int bytes,
+                       const CUtensorMap* maps, const Params& p,
                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  kernel<<<grid, threads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                           maps[4], p);
   return cudaGetLastError();
 }
 
+// The tensor maps of q, k, v, dO and o, boxes of `q_rows` query rows and
+// `k_rows` key rows.
+bool encode_maps(EncodeTiled fn, CUtensorMap (&maps)[5], const void* q,
+                 const void* k, const void* v, const void* dout,
+                 const void* o, const Params& p, int dh, int q_rows,
+                 int k_rows) {
+  return encode(fn, &maps[0], q, p.B, p.Sq, p.H, dh, p.st[kQ][0],
+                p.st[kQ][1], p.st[kQ][2], q_rows) &&
+         encode(fn, &maps[1], k, p.B, p.Sk, p.KV, dh, p.st[kK][0],
+                p.st[kK][1], p.st[kK][2], k_rows) &&
+         encode(fn, &maps[2], v, p.B, p.Sk, p.KV, dh, p.st[kV][0],
+                p.st[kV][1], p.st[kV][2], k_rows) &&
+         encode(fn, &maps[3], dout, p.B, p.Sq, p.H, dh, p.st[kDO][0],
+                p.st[kDO][1], p.st[kDO][2], q_rows) &&
+         encode(fn, &maps[4], o, p.B, p.Sq, p.H, dh, p.st[kO][0],
+                p.st[kO][1], p.st[kO][2], q_rows);
+}
+
+// dQ first (it writes lse * log2(e) and delta into the scratch), then dK
+// and dV.
 template <int DH, bool kPrefix>
-cudaError_t launch_grads(const Params& p, cudaStream_t stream) {
-  constexpr int kLd = Cfg<DH>::kLd;
-  const int dkdv_bytes = (2 * kKeys + 2 * kQStep) * kLd * 2 + 2 * kQStep * 4;
-  const dim3 dkdv_grid((p.Sk + kKeys - 1) / kKeys, p.KV, p.B);
-  cudaError_t err = launch_one(flash_bwd_dkdv<DH, kPrefix>, dkdv_grid,
-                               dkdv_bytes, p, stream);
+cudaError_t launch_grads(EncodeTiled fn, const void* q, const void* k,
+                         const void* v, const void* dout, const void* o,
+                         const Params& p, cudaStream_t stream) {
+  using KC = KvCfg<DH>;
+  using QC = QCfg<DH>;
+  CUtensorMap maps[5];
+  if (!encode_maps(fn, maps, q, k, v, dout, o, p, DH, QC::kRows, QC::kBk))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_one(
+      flash_bwd_dq<DH, kPrefix>,
+      dim3(p.H * p.B, (p.Sq + QC::kRows - 1) / QC::kRows), QC::kThreads,
+      QC::kBytes, maps, p, stream);
   if (err != cudaSuccess) return err;
-  const int dq_bytes = (2 * kRows + 2 * kKStep) * kLd * 2 + 2 * kRows * 4;
-  const dim3 dq_grid((p.Sq + kRows - 1) / kRows, p.H, p.B);
-  return launch_one(flash_bwd_dq<DH, kPrefix>, dq_grid, dq_bytes, p, stream);
+  if (!encode_maps(fn, maps, q, k, v, dout, o, p, DH, KC::kBq, KC::kKeys))
+    return cudaErrorInvalidValue;
+  return launch_one(flash_bwd_dkdv<DH, kPrefix>,
+                    dim3(p.KV * p.B, (p.Sk + KC::kKeys - 1) / KC::kKeys),
+                    KC::kThreads, KC::kBytes, maps, p, stream);
 }
 
 template <int DH>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.Sq;
-  flash_bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return p.prefix > 0 ? launch_grads<DH, true>(p, stream)
-                      : launch_grads<DH, false>(p, stream);
+cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
+                   const void* v, const void* dout, const void* o,
+                   const Params& p, cudaStream_t stream) {
+  return p.prefix > 0
+             ? launch_grads<DH, true>(fn, q, k, v, dout, o, p, stream)
+             : launch_grads<DH, false>(fn, q, k, v, dout, o, p, stream);
 }
 
 }  // namespace
 
+// The float32 scratch a call takes (its `delta` argument): lse * log2(e)
+// and delta for every row of every head, Sq rounded up to 128 rows.
+extern "C" int64_t flash_attention_bwd_scratch_floats(int64_t B, int64_t H,
+                                                      int64_t Sq) {
+  return 2 * B * H * ((Sq + kPad - 1) / kPad * kPad);
+}
+
 // shape: B, H, KV, Sq, Sk, dh.  strides: (batch, seq, head) element strides
-// of q, k, v, o, dO, dq, dk, dv in that order; lse and delta are contiguous
-// [B, H, Sq] float32.  window 0: none; prefix 0: none.  Launches the three
-// kernels on `stream`; returns the first error as an int
-// (cudaErrorInvalidValue for a head dim it was not compiled for).
+// of q, k, v, o, dO, dq, dk, dv in that order; lse is a contiguous
+// [B, H, Sq] float32 tensor and delta a float32 scratch of
+// flash_attention_bwd_scratch_floats(B, H, Sq).  window 0: none; prefix 0:
+// none.  Launches the two kernels on `stream`; returns the first error as
+// an int (cudaErrorInvalidValue for a head dim it was not compiled for or a
+// tensor map the driver refuses, cudaErrorNotSupported without
+// cuTensorMapEncodeTiled).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -586,14 +825,10 @@ extern "C" int flash_attention_bwd_launch(
   const int dh = static_cast<int>(shape[5]);
   if (dh != 64 && dh != 80 && dh != 128 && dh != 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<const bf16*>(o);
-  p.dout = static_cast<const bf16*>(dout);
   p.lse = lse;
-  p.delta = delta;
   p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
@@ -602,7 +837,9 @@ extern "C" int flash_attention_bwd_launch(
   p.KV = static_cast<int>(shape[2]);
   p.Sq = static_cast<int>(shape[3]);
   p.Sk = static_cast<int>(shape[4]);
-  p.dh = dh;
+  p.SqP = (p.Sq + kPad - 1) / kPad * kPad;
+  p.lse2 = delta;
+  p.delta = delta + static_cast<int64_t>(p.B) * p.H * p.SqP;
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) p.st[t][i] = strides[3 * t + i];
   p.causal = causal;
@@ -613,10 +850,10 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dh) {
-    case 64: err = launch<64>(p, s); break;
-    case 80: err = launch<80>(p, s); break;
-    case 128: err = launch<128>(p, s); break;
-    default: err = launch<256>(p, s); break;
+    case 64: err = launch<64>(fn, q, k, v, dout, o, p, s); break;
+    case 80: err = launch<80>(fn, q, k, v, dout, o, p, s); break;
+    case 128: err = launch<128>(fn, q, k, v, dout, o, p, s); break;
+    default: err = launch<256>(fn, q, k, v, dout, o, p, s); break;
   }
   return static_cast<int>(err);
 }

@@ -41,7 +41,7 @@ The functions:
   add nothing to a score, zero columns of v give zero output columns,
   which it slices away, and it passes the scale of the real dh.  It counts
   its launches in ``flash_attention_cuda.launches``;
-* :func:`flash_attention_bwd_cuda` — the backward kernel's wrapper (three
+* :func:`flash_attention_bwd_cuda` — the backward kernel's wrapper (two
   launches a call, counted once in ``flash_attention_bwd_cuda.launches``),
   padding dh as the forward's does;
 * :class:`FlashAttention` — the ``torch.autograd.Function`` that joins the
@@ -314,6 +314,8 @@ def _bwd_library():
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_bwd_scratch_floats.argtypes = [ctypes.c_int64] * 3
+        lib.flash_attention_bwd_scratch_floats.restype = ctypes.c_int64
         lib._flash_attention_bwd_typed = True
     return lib
 
@@ -412,10 +414,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
                              causal: bool, window: Optional[int] = None,
                              prefix: int = 0):
-    """Launch ``csrc/flash_attention_bwd.cu`` (its three kernels: delta,
-    dK/dV, dQ) on bfloat16 CUDA tensors: q, k, v as
-    :func:`flash_attention_cuda` takes them, o and do shaped as q, lse the
-    forward's [B, H, Sq] float32.  Returns (dq, dk, dv) shaped as q, k, v,
+    """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels: dQ with
+    the row terms delta and lse, then dK/dV) on bfloat16 CUDA tensors: q,
+    k, v as :func:`flash_attention_cuda` takes them, o and do shaped as q,
+    lse the forward's [B, H, Sq] float32.  Returns (dq, dk, dv) shaped as q, k, v,
     still being computed on the current stream.  Zero-pads a dh that is not
     compiled, as the forward does.  Counts one launch per call in
     ``flash_attention_bwd_cuda.launches``.  Raises on any other input and
@@ -437,14 +439,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dkey, dval = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return tuple(t[..., :dh].zero_() for t in (dq, dkey, dval))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, H, Sq),
+                          dtype=torch.float32, device=q.device)
     shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dk)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dkey.data_ptr(), dval.data_ptr(), shape,
             _strides(q, k, v, o, do, dq, dkey, dval), int(bool(causal)),
             int(window or 0), int(prefix), scale, stream)

@@ -3,6 +3,9 @@ without one, ``device="cpu"`` runs the plain versions, the CUDA wrapper
 refuses a CPU tensor, and the kernel build module imports without
 ``nvcc`` and says so clearly when asked to build."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -170,6 +173,58 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
     assert not (tmp_path / "kernels").exists()
+
+
+def test_build_paths_follow_the_headers(monkeypatch, tmp_path):
+    """An edited header (``csrc/*.cuh``) changes every library's path, so a
+    source that includes it never loads a library built before the edit."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path("k")
+    assert build.library_path("k") == before
+    (csrc / "common.cuh").write_text("// two\n")
+    edited = build.library_path("k")
+    assert edited != before
+    (csrc / "other.cuh").write_text("// a new header\n")
+    assert build.library_path("k") not in (before, edited)
+    (csrc / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert build.library_path("k") not in (before, edited)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea79flash_fwdILi256ELb0ELb1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea79flash_fwdILi256ELb0ELb1EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 205 registers, used 1 barriers
+ptxas info    : Compile time = 452.325 ms
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_5534123114flash_bwd_dkdvILi80ELb1EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_5534123114flash_bwd_dkdvILi80ELb1EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE
+    72 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_5534123115flash_bwd_deltaENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_5534123115flash_bwd_deltaENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+"""
+
+
+def test_ptxas_table_reads_each_kernel():
+    """``chip_smoke.ptxas_table`` (phase "build") names each kernel with its
+    template arguments and reads its registers, stack and spills."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.ptxas_table(PTXAS_LOG) == [
+        {"kernel": "flash_fwd", "args": "256, no prefix, lse",
+         "registers": 205, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "flash_bwd_dkdv", "args": "80, prefix", "registers": 168,
+         "stack": 72, "spill_stores": 8, "spill_loads": 4},
+        {"kernel": "flash_bwd_delta", "args": "", "registers": 40,
+         "stack": 0, "spill_stores": 0, "spill_loads": 0}]
 
 
 def test_build_paths_follow_the_source():
