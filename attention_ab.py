@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The ``flash_attention`` CUDA kernel of this tree against another source of
-it (the kernel of an earlier commit, say), on one NVIDIA card.
+it (the kernel of an earlier commit, say), on one NVIDIA card; also its
+backward, and the SSD forward's serving instantiation.
 
     git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu \\
         > build/parent_flash_attention.cu
@@ -38,9 +39,19 @@ expected: the two sum in other orders), whether two calls of a side are
 bit-equal, the time of ``scaled_dot_product_attention``'s backward on the
 same inputs, and, where ``cuobjdump`` is found, how many ``HGMMA``,
 ``HMMA``, ``UTMALDG`` and ``UBLKCP`` instructions each backward kernel of
-either build holds.  Either option may be given alone.  Prints the card's
-name and power limit first.  Exits non-zero without a card or if a build
-or launch fails.
+either build holds.
+
+    git show <commit>:src/repro_torch/kernels/csrc/ssd_scan.cu \\
+        > build/parent_ssd_scan.cu
+    python3 attention_ab.py --ssd-parent build/parent_ssd_scan.cu
+
+``--ssd-parent`` holds this tree's SSD forward without its chunk states
+(the serving instantiation) against another ``ssd_scan.cu`` whose entry
+point has no states pointer: outputs bit-equal or not at
+``chip_smoke.SSD_SHAPE``, times in ``TURNS``, and the instructions of the
+two builds' ``ssd_fwd<64, 128>`` that differ.  The options may be given
+alone or together.  Prints the card's name and power limit first.  Exits
+non-zero without a card or if a build or launch fails.
 """
 
 from __future__ import annotations
@@ -69,14 +80,14 @@ BWD_SHAPES = ("danube", "recurrentgemma", "internvl_prefix", "dh160_padded")
 BWD_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
-def sass(cuobjdump: str, lib: Path, dh: int) -> list:
-    """The instructions of ``flash_fwd<dh, false[, false]>`` in ``lib``,
-    addresses dropped and constant-bank offsets masked."""
+def sass(cuobjdump: str, lib: Path, pattern: str) -> list:
+    """The instructions of the kernel of ``lib`` whose mangled name matches
+    ``pattern``, addresses dropped and constant-bank offsets masked."""
     out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                          text=True, check=True).stdout
     for body in re.split(r"\n\s*Function : ", out)[1:]:
         name = body.split("\n", 1)[0]
-        if re.search(rf"flash_fwdILi{dh}ELb0E(Lb0E)?E", name):
+        if re.search(pattern, name):
             return [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]",
                            line.split("*/", 1)[1]).split(";")[0].strip()
                     for line in body.split("\n")
@@ -109,14 +120,17 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-parent", type=Path,
                     help="another flash_attention_bwd.cu of the same C "
                          "interface")
+    ap.add_argument("--ssd-parent", type=Path,
+                    help="another ssd_scan.cu, from before its chunk states "
+                         "pointer")
     ap.add_argument("--prefix-arg", action="store_true",
                     help="the other source's entry point takes a prefix")
     ap.add_argument("--lse-arg", action="store_true",
                     help="the other source's entry point takes an lse "
                          "pointer after o")
     args = ap.parse_args(argv)
-    if args.parent is None and args.bwd_parent is None:
-        ap.error("give --parent, --bwd-parent or both")
+    if (args.parent, args.bwd_parent, args.ssd_parent) == (None,) * 3:
+        ap.error("give --parent, --bwd-parent, --ssd-parent or several")
 
     import torch
 
@@ -136,6 +150,8 @@ def main(argv=None) -> int:
         forward_ab(args, torch, chip_smoke, build, fa, results)
     if args.bwd_parent is not None:
         backward_ab(args.bwd_parent, torch, chip_smoke, build, fa, results)
+    if args.ssd_parent is not None:
+        ssd_ab(args.ssd_parent, torch, chip_smoke, build, results)
     print(json.dumps(results), flush=True)
     return 0
 
@@ -214,7 +230,9 @@ def forward_ab(args, torch, chip_smoke, build, fa, results: dict):
     for dh in sorted({dh for _, (_, _, _, _, dh, _) in SHAPES}):
         if cuobjdump is None:
             break
-        a, b = sass(cuobjdump, other_lib, dh), sass(cuobjdump, this_lib, dh)
+        pattern = rf"flash_fwdILi{dh}ELb0E(Lb0E)?E"   # no prefix, no lse
+        a = sass(cuobjdump, other_lib, pattern)
+        b = sass(cuobjdump, this_lib, pattern)
         diff = [line for line in difflib.unified_diff(a, b, lineterm="", n=0)
                 if line[:1] in "+-" and line[:3] not in ("+++", "---")]
         results[f"sass_dh{dh}"] = {"other": len(a), "this": len(b),
@@ -332,6 +350,95 @@ def backward_ab(parent: Path, torch, chip_smoke, build, fa, results: dict):
                 print(f"attention_ab sass {side} {kernel}: "
                       + ", ".join(f"{op} {n}" for op, n in ops.items()),
                       flush=True)
+
+
+def ssd_ab(parent: Path, torch, chip_smoke, build, results: dict):
+    """This tree's SSD forward kernel without its chunk states (the serving
+    instantiation) against the ``ssd_scan.cu`` at ``parent``, a source from
+    before the states pointer, at ``chip_smoke.SSD_SHAPE`` with x, b and c
+    strided as the model passes them; then the two builds' SASS of that
+    instantiation; into ``results``."""
+    import math
+    this_lib = build.build(("ssd_scan",))["ssd_scan"]
+    other_lib = build.BUILD_DIR / "probe" / "libssd_scan_other.so"
+    other_lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.flags("ssd_scan"), "-o",
+                    str(other_lib), str(parent)], check=True)
+
+    def entry(path, states_arg):
+        fn = ctypes.CDLL(str(path)).ssd_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * (9 if states_arg else 8)
+                       + [ctypes.POINTER(ctypes.c_int64)] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        return fn, states_arg
+
+    entries = {"other": entry(other_lib, False), "this": entry(this_lib, True)}
+    B, S, H, P, N = chip_smoke.SSD_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    lo, hi = chip_smoke.SSD_DT_RANGE
+    dt0 = torch.logspace(math.log10(lo), math.log10(hi), H, device=dev)
+    dt = torch.nn.functional.softplus(
+        dt0 + torch.log(-torch.expm1(-dt0))
+        + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
+    a = -torch.linspace(*chip_smoke.SSD_A_RANGE, H, device=dev)
+    outs = {side: (torch.empty((B, S, H, P), dtype=torch.bfloat16,
+                               device=dev),
+                   torch.empty((B, H, P, N), device=dev)) for side in entries}
+
+    def raw(side):
+        fn, states_arg = entries[side]
+        y, fin = outs[side]
+        shape = (ctypes.c_int64 * 5)(B, S, H, P, N)
+        strides = (ctypes.c_int64 * 13)(
+            x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
+            dt.stride(2), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            y.stride(0), y.stride(1), y.stride(2))
+        ptrs = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), None, y.data_ptr(), fin.data_ptr()]
+        ptrs += [None] if states_arg else []
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call():
+            rc = fn(*ptrs, shape, strides, stream)
+            if rc != 0:
+                raise RuntimeError(f"the {side} kernel's launch failed: {rc}")
+
+        return call
+
+    calls = {side: raw(side) for side in entries}
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(outs["other"], outs["this"]))
+    times = {"other": [], "this": []}
+    for turn in TURNS:
+        times[turn].append(chip_smoke.event_ms(torch, calls[turn], 20))
+    med = {side: sorted(ts)[len(ts) // 2] for side, ts in times.items()}
+    results["ssd"] = {"bit_equal": same, "median_ms": med, **times}
+    print(f"attention_ab ssd forward: B {B} S {S} H {H} P {P} N {N}, no "
+          f"chunk states: outputs bit-equal {same}; "
+          + "; ".join(f"{side} {['%.4f' % t for t in sorted(ts)]} ms "
+                      f"(median {med[side]:.4f})"
+                      for side, ts in times.items()), flush=True)
+    cuobjdump = shutil.which("cuobjdump", path=str(Path(build.nvcc()).parent))
+    if cuobjdump is None:
+        return
+    pattern = r"ssd_fwdILi64ELi128E(Lb0E)?E"   # the serving instantiation
+    one, two = sass(cuobjdump, other_lib, pattern), sass(cuobjdump, this_lib,
+                                                         pattern)
+    diff = [line for line in difflib.unified_diff(one, two, lineterm="", n=0)
+            if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+    results["sass_ssd"] = {"other": len(one), "this": len(two),
+                           "differing": len(diff)}
+    print(f"attention_ab sass ssd_fwd<64, 128> without chunk states: other "
+          f"{len(one)} instructions, this {len(two)}, {len(diff)} lines "
+          "differ (constant-bank offsets masked)", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ without the final result line):
 
 1. build — ``nvcc`` compiles every CUDA kernel of the port from
    ``src/repro_torch/kernels/csrc/`` (one process per source, all at once);
-   ptxas's registers, stack and spills of each backward kernel, none of
-   the last two allowed at dh 64, 80 and 128;
+   ptxas's registers, stack and spills of each attention backward kernel,
+   none of the last two allowed at dh 64, 80 and 128, and of the SSD
+   kernels (the forward with and without its chunk states, the backward's
+   two), none allowed;
 2. kernel — the ``dvfs_opt`` CUDA kernel against its plain torch version
    on the card, on a 1,048,576-row fuzz matrix made from ``--seed`` plus the
    app-library rows, and on the rows of ``dvfs_opt.edge_rows`` (a NaN in
@@ -84,7 +86,23 @@ without the final result line):
    applied twice to dK); two calls on the same inputs bit-equal; each
    timed beside the plain version, the backward of
    ``scaled_dot_product_attention`` and the bound;
-12. train danube — the training path: h2o-danube-1.8b at full width and
+12. ssd backward — ``ssd_scan_bwd`` (CUDA) against its plain version (dx,
+   ddt, da, db, dc and dinit from the forward kernel's own chunk states,
+   which are held against their plain version; the forward's y and final
+   state with its states bit-equal to the serving forward's) at
+   mamba2-370m's training shape (B 8, S 2048, H 32, P 64, N 128) with a
+   zero and a random final-state cotangent, a 256-token segment from a
+   state, a ragged S of 1,000 (the plain version on inputs padded with
+   tokens of dt = 0 to the kernel's chunks) and the padded (P, N) = (16,
+   16) and (16, 64); plain renderings of
+   four faults the bar must catch (the state cotangent not carried across
+   chunks, dB and dC from head 0 only, the off-chunk term dropped from d
+   cum, ddt without d(dA) a); two calls bit-equal; the error again from
+   chunk states rounded to bf16; each timed beside the plain version and
+   the bound (the function's operands only; the bytes of chunk states and
+   state cotangents the design moves besides are printed beside it), and
+   the forward with and without writing its chunk states;
+13. train danube — the training path: h2o-danube-1.8b at full width and
    depth (24 layers), B 8, S 2048, ``succ`` data, the reference launcher's
    AdamW and schedule, remat on: the first step's loss and gradient norm
    through the kernels against the same step through the plain versions;
@@ -93,11 +111,16 @@ without the final result line):
    replayed losses must equal the first run's bit for bit), the launch
    counts of the run checked exactly; step seconds, tokens/s, peak memory,
    and one profiled step's device idle share and the kernels' shares;
-13. train families — one train step of the ``smoke`` preset of each other
-   family on the card (moe, hybrid, encdec, vlm: finite loss and gradient
-   norm, the backward kernel launched); for the ssm family the
-   ``NotImplementedError`` of the SSD scan, which has no backward kernel
-   yet.
+14. train mamba2 — the ssm family's training path: mamba2-370m at full
+   width and depth (48 layers), B 8, S 2048, ``succ`` data, the same AdamW
+   and remat: the first step's loss and gradient norm through the kernels
+   against the plain versions, then 5 steps with their launch counts
+   checked exactly (the SSD forward twice a layer, the backward once);
+   step seconds, tokens/s, peak memory, one profiled step's idle share and
+   the SSD kernels' shares;
+15. train families — one train step of the ``smoke`` preset of each other
+   family on the card (moe, hybrid, encdec, vlm, ssm: finite loss and
+   gradient norm, the family's backward kernel launched).
 
 Each kernel check compares the normalised error, max |got - want| /
 (|want| + rms(want)), with its bar, and shows that the bar would catch the
@@ -262,6 +285,29 @@ ATTN_BWD_SHAPES = (
 # against it.
 ATTN_BWD_BAR = 8e-2
 
+# The SSD backward phase: mamba2-370m's training shape (B 8, S 2048, H 32,
+# P 64, N 128), from zero and with a final-state cotangent; a 256-token
+# segment from a state; a ragged S; the padded (P, N) of the smoke and 100m
+# presets.  (name, (B, S, H, P, N), initial state, final-state cotangent)
+SSD_BWD_SHAPES = (
+    ("train", (8, 2048, 32, 64, 128), False, False),
+    ("train_dfinal", (8, 2048, 32, 64, 128), False, True),
+    ("segment_from_state", (8, SSD_INIT_LEN, 32, 64, 128), True, True),
+    ("ragged", (2, 1000, 32, 64, 128), True, True),
+    ("pad_p16_n16", (8, 2048, 8, 16, 16), False, False),
+    ("pad_p16_n64", (8, 2048, 64, 16, 64), True, True))
+# Backward kernel against ssd_scan_bwd_plain at KERNEL_CHUNK, bf16, the
+# normalised error of each of dx, ddt, da, db, dc and dinit; a ragged S goes
+# to the plain version padded with tokens of dt = 0 to whole chunks, so
+# that both chunk at 64.  The two round the same operands to bf16 but sum
+# in other orders (mma tiles against einsums, the heads' dB and dC sums in
+# another order) and take exp2 against exp.  Readings on an H100 at 700 W
+# (chip_smoke.py, one run, these shapes): at most 1.31e-2 (dx), 9.8e-3 at
+# the ragged S (2.50e-2 there while the plain version shrank its chunk to
+# 50 tokens to divide S).  The bar is three times the largest; the plain
+# renderings of the faults (ssd_bwd_faults) read 0.36-8.8 against it.
+SSD_BWD_BAR = 4e-2
+
 # The training phases: h2o-danube-1.8b at full width and depth, the batch
 # and length of the serving phase's prompts, the JAX launcher's defaults
 # (lr 1e-3 on a cosine schedule with 20 warmup steps over the run, AdamW
@@ -274,6 +320,10 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_LR = 8, 3, 6, 1e-3
 # against the JAX package (tests/test_torch_train.py).  Readings on an H100
 # at 700 W (chip_smoke.py, one run): 4.1e-6 and 1.3e-4.
 TRAIN_LOSS_BAR, TRAIN_GNORM_BAR = 2e-3, 2e-2
+# The ssm family's training phase: mamba2-370m at full width and depth (48
+# layers), the same batch, length, data and optimizer as danube's, a few
+# steps (no checkpoint loop: the danube phase drives the loop).
+TRAIN_SSM_ARCH, TRAIN_SSM_STEPS = "mamba2-370m", 5
 # One smoke-preset step of each other family on the card.
 TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "recurrentgemma-2b",
                       "whisper-base", "internvl2-2b", "mamba2-370m")
@@ -522,6 +572,89 @@ def ssd_bound(B, S, H, P, N, q) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ssd_bwd_bound(B, S, H, P, N, q, init, dfinal) -> tuple:
+    """Least time for the SSD backward: the larger of the operations of its
+    products at chunk q (the forward's C B^T and the state cotangent's
+    (exp(cum) dy)^T C, then per chunk and head dM = dy xd^T and M^T dy on
+    and below the diagonal, B G^T, C s^T, the state terms of dC and dB, and
+    dS B and dS^T C once per chunk for all heads) at the bf16 peak, and the
+    bytes of the function's own operands once each: x, dy, dt, a, b, c, the
+    initial state and the final state's cotangent where given in, dx, ddt,
+    da, db, dc and dinit (where there is an initial state) out.  What the
+    design moves besides (``ssd_bwd_design_bytes``) is not counted."""
+    nc = -(-S // q)
+    tri = q * (q + 1) // 2
+    ops = (B * nc * 2 * tri * N * 3            # C B^T, dS B, dS^T C
+           + B * H * nc * (2 * tri * P * 2      # dM, M^T dy
+                           + 2 * q * P * N * 5))  # G, B G^T, C s^T, dC, dB
+    byts = (B * S * H * P * 2 * 3 + B * S * H * 4 * 2 + H * 4 * 2
+            + B * S * N * 2 * 4
+            + B * H * P * N * 4 * (2 * bool(init) + bool(dfinal)))
+    t_ops = ops / PEAK_BF16_OPS * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ssd_bwd_design_bytes(B, S, H, q, P, N) -> int:
+    """Bytes the SSD backward's design moves beyond its operands, at the
+    (P, N) it runs at: the forward's f32 state entering each chunk, read
+    once, and the f32 state cotangent of each chunk, written by
+    ``ssd_bwd_state`` and read back by ``ssd_bwd_chunk``."""
+    return 3 * B * -(-S // q) * H * P * N * 4
+
+
+def ssd_bwd_faults(ss, x, dt, a, b, c, init, dy, dfinal, want) -> dict:
+    """Plain renderings of the faults the SSD backward's bar must catch,
+    each the largest normalised error of the gradients it changes against
+    ``want`` (``ssd_scan_bwd_plain``'s at KERNEL_CHUNK): the state
+    cotangent not carried across chunk boundaries (each chunk of
+    KERNEL_CHUNK tokens on its own, from the state the forward hands it,
+    with no cotangent from the chunks after it), dB and dC from head 0
+    only, the off-chunk term dropped from d cum, and ddt without its
+    d(dA) a term.  S is a multiple of KERNEL_CHUNK."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    q = ss.KERNEL_CHUNK
+    dx_w, ddt_w, da_w, db_w, dc_w, _ = want
+
+    def worst(got, keys):
+        names = ("dx", "ddt", "da", "db", "dc")
+        return max(norm_err(got[names.index(k)], want[names.index(k)])
+                   for k in keys)
+
+    if S % q:
+        raise ValueError(f"S {S} is not a multiple of {q}: pad it with "
+                         "ss.pad_tokens")
+    faults = {}
+    if S > q:
+        nc = S // q
+        st = ss.ssd_chunk_states_plain(x, dt, a, b, c, init)
+
+        def chunks(t):
+            return t.reshape(B * nc, q, *t.shape[2:])
+
+        got = ss.ssd_scan_bwd_plain(
+            chunks(x), chunks(dt), a, chunks(b), chunks(c), q,
+            st.reshape(B * nc, H, P, N), chunks(dy), None)
+        got = (got[0].reshape(B, S, H, P), got[1].reshape(B, S, H), got[2],
+               got[3].reshape(B, S, N), got[4].reshape(B, S, N))
+        faults["state cotangent not carried"] = worst(
+            got, ("dx", "ddt", "db", "dc"))
+    got = ss.ssd_scan_bwd_plain(
+        x[:, :, :1], dt[:, :, :1], a[:1], b, c, q,
+        None if init is None else init[:, :1], dy[:, :, :1],
+        None if dfinal is None else dfinal[:, :1])
+    faults["dB, dC from head 0"] = worst(got, ("db", "dc"))
+    terms = ss.ssd_scan_bwd_terms(x, dt, a, b, c, q, init, dy, dfinal)
+    off = terms["dcum_off"].reshape(B, S // q, q, H)   # its reverse cumsum
+    off = off.flip(2).cumsum(2).flip(2).reshape(B, S, H)
+    faults["off-chunk term dropped from d cum"] = max(
+        norm_err(ddt_w - off * a, ddt_w),
+        norm_err(da_w - (off * dt).sum(dim=(0, 1)), da_w))
+    faults["ddt without d(dA) a"] = norm_err(ddt_w - terms["ddA"] * a, ddt_w)
+    return faults
+
+
 def sdpa_mask(torch, Sq, Sk, causal, window, prefix, device):
     """The boolean [Sq, Sk] mask of these bounds, or None where there is
     none or ``is_causal`` says it."""
@@ -663,6 +796,22 @@ def main(argv=None) -> int:
                if row["args"].split(",")[0] in ("64", "80", "128")
                and (row["stack"] or row["spill_stores"]
                     or row["spill_loads"])]
+    checks.expect(not spilled, f"build: stack or spills in {spilled}")
+    # The SSD kernels (the forward with and without its chunk states, the
+    # backward's two) run with no stack and no spills.
+    ssd = [row for row in ptxas_table(log.getvalue())
+           if row["kernel"].startswith("ssd_")]
+    for row in ssd:
+        print(f"phase build ptxas {row['kernel']}<{row['args']}>: "
+              f"{row['registers']} registers, {row['stack']} bytes stack, "
+              f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
+              "stores / loads", flush=True)
+    checks.expect(sorted(f"{r['kernel']}<{r['args']}>" for r in ssd) == [
+        "ssd_bwd_chunk<>", "ssd_bwd_state<>", "ssd_fwd<64, 128, no states>",
+        "ssd_fwd<64, 128, states>"], f"build: ptxas lines of the SSD "
+                  f"kernels {[(r['kernel'], r['args']) for r in ssd]}")
+    spilled = [f"{row['kernel']}<{row['args']}>" for row in ssd
+               if row["stack"] or row["spill_stores"] or row["spill_loads"]]
     checks.expect(not spilled, f"build: stack or spills in {spilled}")
 
     # ---- phase 2: the kernel against its plain version on the card.
@@ -884,7 +1033,9 @@ def main(argv=None) -> int:
                                args.seed)
              for arch, kernel, layers in SERVE_ARCHS}
     attn_bwd = attention_bwd_phase(checks, torch, dev, args.seed)
+    ssd_bwd = ssd_bwd_phase(checks, torch, dev, args.seed)
     train = train_danube_phase(checks, np, torch, dev, args.seed)
+    train_ssm = train_mamba2_phase(checks, np, torch, dev, args.seed)
     train_families = train_families_phase(checks, torch, dev, args.seed)
 
     if checks.failed:
@@ -929,7 +1080,18 @@ def main(argv=None) -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        **ssd, **serve["mamba2-370m"], **ssd_pad}]}),
+        **ssd, **serve["mamba2-370m"], **ssd_pad,
+        "launches_train": train_ssm["launches"]["ssd_scan"],
+        "fwd_states_ms": ssd_bwd["train"]["fwd_states_ms"]}, {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:79 (jax.grad of ssd_chunked; "
+                    "no Pallas backward)",
+        "launches": train_ssm["launches"]["ssd_scan_bwd"],
+        **{k: v for k, v in ssd_bwd["train"].items()
+           if k not in ("fwd_ms", "fwd_states_ms")},
+        "max_abs_err": max(row["max_abs_err"] for row in ssd_bwd.values()),
+        "shapes": ssd_bwd, "train": train_ssm}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1606,15 +1768,17 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
 def kernel_label(mangled: str) -> tuple:
     """(name, template arguments) of a kernel's mangled name:
     ("flash_bwd_dkdv", "80, prefix") for ``..._flash_bwd_dkdvILi80ELb1EEEv
-    ...``; the flags are the prefix's and then the lse's."""
-    k = re.search(r"\d+(flash_\w+?)(?:I(.*?)E)?(?:E?v14|E?NS|Ev)", mangled)
+    ...``; the attention kernels' flags are the prefix's and then the
+    lse's, the SSD forward's the chunk states'."""
+    k = re.search(r"\d+((?:flash|ssd)_\w+?)(?:I(.*?)E)?(?:E?v14|E?NS|Ev)",
+                  mangled)
     if k is None:
         return mangled, ""
     found = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
     flags = [v for kind, v in found if kind == "b"]
+    names = ("states",) if k.group(1).startswith("ssd") else ("prefix", "lse")
     args = [v for kind, v in found if kind == "i"] + [
-        name if v == "1" else f"no {name}"
-        for name, v in zip(("prefix", "lse"), flags)]
+        name if v == "1" else f"no {name}" for name, v in zip(names, flags)]
     return k.group(1), ", ".join(args)
 
 
@@ -1648,7 +1812,8 @@ def kernel_counters() -> dict:
     return {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
             "flash_attention": flash_attention.flash_attention_cuda,
             "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
-            "ssd_scan": ssd_scan.ssd_scan_cuda}
+            "ssd_scan": ssd_scan.ssd_scan_cuda,
+            "ssd_scan_bwd": ssd_scan.ssd_scan_bwd_cuda}
 
 
 def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
@@ -1755,6 +1920,141 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
     return out
 
 
+def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
+    """The SSD backward kernel against ``ssd_scan_bwd_plain`` at
+    ``SSD_BWD_SHAPES`` (a ragged S padded for the plain version with tokens
+    of dt = 0, so that both chunk at KERNEL_CHUNK), from the forward
+    kernel's own chunk states (held against ``ssd_chunk_states_plain``; its
+    y and final state bit-equal to the serving forward's), with plain
+    renderings of the
+    faults the bar is there for, two calls bit-equal, and the gradient's
+    error again from the chunk states rounded to bf16 (what storing them in
+    bf16 would cost); each shape timed beside the plain version and the
+    bound, the training shape's forward with and without its states."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    names = ("dx", "ddt", "da", "db", "dc", "dinit")
+    out = {}
+    for key, (B, S, H, P, N), with_init, with_dfinal in SSD_BWD_SHAPES:
+        xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        x = xbc[..., :H * P].reshape(B, S, H, P)   # strided, as the model's
+        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt0 = torch.logspace(math.log10(SSD_DT_RANGE[0]),
+                             math.log10(SSD_DT_RANGE[1]), H, device=dev)
+        dt = torch.nn.functional.softplus(
+            dt0 + torch.log(-torch.expm1(-dt0))
+            + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
+        a = -torch.linspace(*SSD_A_RANGE, H, device=dev)
+        init = (torch.randn((B, H, P, N), generator=gen, device=dev)
+                if with_init else None)
+        dy = torch.randn((B, S, H, P), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        dfinal = (torch.randn((B, H, P, N), generator=gen, device=dev)
+                  if with_dfinal else None)
+        y, final, states = ss.ssd_scan_cuda(x, dt, a, b, c, init,
+                                            states=True)
+        y0, final0 = ss.ssd_scan_cuda(x, dt, a, b, c, init)
+        fwd_same = torch.equal(y, y0) and torch.equal(final, final0)
+        checks.expect(fwd_same, f"ssd backward {key}: the forward writing "
+                      "its chunk states gives y and the final state "
+                      "bit-equal to the serving forward's")
+        del y, final, y0, final0
+        st_err = norm_err(states[..., :P, :N],
+                          ss.ssd_chunk_states_plain(x, dt, a, b, c, init))
+
+        def kernel(st=states):
+            return ss.ssd_scan_bwd_cuda(x, dt, a, b, c, st, dy, dfinal)
+
+        got, again = kernel(), kernel()
+        twice = all(torch.equal(u, v) for u, v in zip(got, again))
+        del again
+        # The plain version chunks a ragged S at a divisor of S; padded
+        # with tokens of dt = 0 it chunks at KERNEL_CHUNK, as the kernel.
+        xp, dtp, bp, cp, dyp = (ss.pad_tokens(t) for t in (x, dt, b, c, dy))
+
+        def plain_padded():
+            return ss.ssd_scan_bwd_plain(xp, dtp, a, bp, cp, ss.KERNEL_CHUNK,
+                                         init, dyp, dfinal)
+
+        def real(g):
+            return (g[0][:, :S], g[1][:, :S], g[2], g[3][:, :S],
+                    g[4][:, :S], g[5])
+
+        want_p = plain_padded()
+        want = real(want_p)
+        errs = {n: norm_err(g, w) for n, g, w in zip(names, got, want)
+                if w is not None}
+        abs_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want) if w is not None)
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        shapes_ok = all(tuple(g.shape) == tuple(w.shape)
+                        for g, w in zip(got, want) if w is not None)
+        checks.expect(twice, f"ssd backward {key}: two calls on the same "
+                      "inputs give every gradient bit-equal")
+        checks.expect(finite and shapes_ok and st_err <= SSD_BAR
+                      and max(errs.values()) <= SSD_BWD_BAR,
+                      f"ssd backward {key}: finite {finite}, shapes "
+                      f"{shapes_ok}, chunk states norm err {st_err} <= "
+                      f"{SSD_BAR}, norm errs {errs} <= {SSD_BWD_BAR}")
+        low = ss.ssd_scan_bwd_cuda(x, dt, a, b, c,
+                                   states.bfloat16().float(), dy, dfinal)
+        errs_bf16 = {n: norm_err(g, w) for n, g, w in zip(names, low, want)
+                     if w is not None}
+        del low, got
+        faults = ssd_bwd_faults(ss, xp, dtp, a, bp, cp, init, dyp, dfinal,
+                                want_p)
+        checks.expect(min(faults.values()) > SSD_BWD_BAR,
+                      f"ssd backward {key}: every fault's norm err {faults} "
+                      f"exceeds the bar {SSD_BWD_BAR}")
+        del want, want_p
+        k_ms = event_ms(torch, kernel, 10)
+        p_ms = event_ms(torch, lambda: real(plain_padded()), 2)
+        del xp, dtp, bp, cp, dyp
+        b_ms, b_by = ssd_bwd_bound(B, S, H, P, N, ss.KERNEL_CHUNK, with_init,
+                                   with_dfinal)
+        design = ssd_bwd_design_bytes(B, S, H, ss.KERNEL_CHUNK, ss.KERNEL_P,
+                                      ss.KERNEL_N)
+        row = {"max_abs_err": abs_err, "norm_errs": errs,
+               "states_norm_err": st_err, "norm_errs_bf16_states": errs_bf16,
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None, "design_bytes": design,
+               "fault_norm_errs": faults, "bit_equal_twice": twice,
+               "fwd_states_bit_equal": fwd_same,
+               "shape": [B, S, H, P, N, "init" if with_init else "no init",
+                         "dfinal" if with_dfinal else "no dfinal"]}
+        fwd = ""
+        if key == "train":
+            row["fwd_ms"] = event_ms(torch, lambda: ss.ssd_scan_cuda(
+                x, dt, a, b, c), 20)
+            row["fwd_states_ms"] = event_ms(torch, lambda: ss.ssd_scan_cuda(
+                x, dt, a, b, c, states=True), 20)
+            fwd = (f"; forward {row['fwd_ms']:.4f} ms, writing the chunk "
+                   f"states {row['fwd_states_ms']:.4f} ms")
+        out[key] = row
+        print(f"phase ssd backward {key}: B {B} S {S} H {H} P {P} N {N} "
+              f"(run at P {ss.KERNEL_P}, N {ss.KERNEL_N}), initial state "
+              f"{with_init}, final-state cotangent {with_dfinal}: forward "
+              f"with states bit-equal to the serving forward {fwd_same}, "
+              f"chunk states norm err {st_err:.3e}; norm err "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f", max abs err {abs_err:.3e}, two calls bit-equal {twice}; "
+              "from bf16-rounded chunk states "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs_bf16.items())
+              + f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_ms:.1%} of the "
+              f"bound; the design's chunk states and state cotangents "
+              f"{design} bytes more ({design / PEAK_BYTES * 1e3:.4f} ms at "
+              "the memory rate)" + fwd + "; plain renderings of faults, norm err "
+              "against the right answer: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in faults.items()),
+              flush=True)
+        del xbc, x, b, c, dt, a, init, dy, dfinal, states
+        torch.cuda.empty_cache()
+    return out
+
+
 def _loss_and_grad_norm(torch, model, params, batch):
     """(loss, global gradient norm) of ``model.loss_fn`` at ``params``,
     leaving ``params`` untouched."""
@@ -1857,7 +2157,7 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
     steps_run = run["loss_steps"]
     n = len(steps_run)
     want = {"dvfs_opt": 0, "flash_attention": 2 * L * n,
-            "flash_attention_bwd": L * n, "ssd_scan": 0}
+            "flash_attention_bwd": L * n, "ssd_scan": 0, "ssd_scan_bwd": 0}
     checks.expect(launches == want,
                   f"train: launches {launches} over {n} steps, want {want} "
                   "(the forward kernel twice a layer with remat, the "
@@ -1941,10 +2241,145 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
     return result
 
 
+def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
+    """The ssm family's training path at full width and depth: the first
+    step through the kernels against the plain versions, then
+    ``TRAIN_SSM_STEPS`` steps with the launch counts read around them, and
+    one profiled step."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.train import WARMUP, preset_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    counters = kernel_counters()
+    cfg = preset_config(TRAIN_SSM_ARCH, "full")
+    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    model = Model(cfg, device=dev)
+    opt = AdamW(learning_rate=cosine_schedule(TRAIN_LR, WARMUP,
+                                              TRAIN_SSM_STEPS))
+    data = SyntheticLMData.for_config(cfg, S, B, seed=seed, mode="succ")
+    state = init_state(model, opt, seed)
+    n_params = sum(t.numel() for t in _tensors(state.params))
+
+    def put(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    # The first step through the kernels, then through the plain versions
+    # (no kernel may launch there), on the same parameters and batch.
+    batch0 = put(data.batch(0))
+    k_loss, k_norm = _loss_and_grad_norm(torch, model, state.params, batch0)
+    before = {name: fn.launches for name, fn in counters.items()}
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain):
+        p_loss, p_norm = _loss_and_grad_norm(torch, model, state.params,
+                                             batch0)
+    plain_launches = {name: fn.launches - before[name]
+                      for name, fn in counters.items()}
+    checks.expect(not any(plain_launches.values()),
+                  f"train {TRAIN_SSM_ARCH}: the plain path launched "
+                  f"{plain_launches}")
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    norm_rel = abs(k_norm - p_norm) / p_norm
+    checks.expect(math.isfinite(k_loss) and math.isfinite(k_norm)
+                  and loss_rel <= TRAIN_LOSS_BAR
+                  and norm_rel <= TRAIN_GNORM_BAR,
+                  f"train {TRAIN_SSM_ARCH}: first step through the kernels, "
+                  f"loss {k_loss} and grad norm {k_norm}, against the plain "
+                  f"versions' {p_loss} and {p_norm}: rel {loss_rel} <= "
+                  f"{TRAIN_LOSS_BAR}, {norm_rel} <= {TRAIN_GNORM_BAR}")
+    del batch0
+    torch.cuda.empty_cache()
+
+    # The main path: the steps, their counts read around them.
+    step = make_train_step(model, opt)
+    step_s, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    for i in range(TRAIN_SSM_STEPS):
+        batch = put(data.batch(i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = TRAIN_SSM_STEPS
+    want = {name: 0 for name in counters}
+    want.update(ssd_scan=2 * L * n, ssd_scan_bwd=L * n)
+    checks.expect(launches == want,
+                  f"train {TRAIN_SSM_ARCH}: launches {launches} over {n} "
+                  f"steps, want {want} (the forward kernel twice a layer "
+                  "with remat, each time writing its chunk states, the "
+                  "backward once: two kernel launches a call)")
+    checks.expect(all(math.isfinite(x) for x in losses),
+                  f"train {TRAIN_SSM_ARCH}: losses {losses} finite")
+
+    # One more step under the profiler: device busy against the wall, the
+    # SSD kernels' shares of the device time.
+    from torch.profiler import ProfilerActivity, profile
+    batch = put(data.batch(n))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    split, top = device_split(events, "ssd_")   # the SSD kernels together
+    fwd_ms, n_fwd = device_split(events, "ssd_fwd")[0]["kernel"]
+    bwd_ms, n_bwd = device_split(events, "ssd_bwd")[0]["kernel"]
+    state_ms = device_split(events, "ssd_bwd_state")[0]["kernel"][0]
+    mm_ms = split["matmuls"][0]
+    step_med = statistics.median(step_s[1:])   # the first step warms up
+    result = {
+        "params": n_params, "batch": B, "seq": S, "layers": L,
+        "first_step": {"loss": k_loss, "plain_loss": p_loss,
+                       "loss_rel": loss_rel, "grad_norm": k_norm,
+                       "plain_grad_norm": p_norm, "grad_norm_rel": norm_rel},
+        "launches": launches, "losses": losses, "step_s": step_s,
+        "step_s_median": step_med, "tokens_per_s": B * S / step_med,
+        "peak_gib": peak / 2**30, "profiled_step_wall_ms": p_wall * 1e3,
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / 1e3 / p_wall,
+        "ssd_fwd_ms": fwd_ms, "ssd_fwd_share": fwd_ms / busy,
+        "ssd_bwd_ms": bwd_ms, "ssd_bwd_share": bwd_ms / busy,
+        "ssd_bwd_state_ms": state_ms,
+        "matmul_ms": mm_ms, "matmul_share": mm_ms / busy,
+        "rest_ms": split["rest"][0], "rest_share": split["rest"][0] / busy}
+    print(f"phase train {TRAIN_SSM_ARCH}: {n_params} parameters, {L} "
+          f"layers, B {B} S {S} succ, AdamW lr {TRAIN_LR} cosine (warmup "
+          f"{WARMUP}), remat; first step through the kernels: loss "
+          f"{k_loss:.6f}, grad norm {k_norm:.6f}; plain versions: "
+          f"{p_loss:.6f}, {p_norm:.6f} (rel {loss_rel:.3e}, {norm_rel:.3e}); "
+          f"{n} steps, launches {launches}, losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; step {step_med:.4f} s (median of {n - 1} after the first; "
+          f"all {[round(x, 4) for x in step_s]}), {B * S / step_med:.1f} "
+          f"tokens/s, peak memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"phase train {TRAIN_SSM_ARCH} step profile: wall "
+          f"{p_wall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / 1e3 / p_wall:.4f}; ssd_scan_bwd {bwd_ms:.3f} ms "
+          f"x{n_bwd} ({bwd_ms / busy:.1%}; ssd_bwd_state {state_ms:.3f} ms "
+          f"of it), ssd_scan {fwd_ms:.3f} ms "
+          f"x{n_fwd} ({fwd_ms / busy:.1%}), matmuls {mm_ms:.3f} ms "
+          f"({mm_ms / busy:.1%}), the rest {split['rest'][0]:.3f} ms "
+          f"({split['rest'][0] / busy:.1%}); top of the rest: {top}",
+          flush=True)
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return result
+
+
 def train_families_phase(checks, torch, dev, seed: int) -> dict:
     """One train step of each other family's smoke preset on the card:
-    finite loss and gradient norm with the backward kernel launched; for
-    the ssm family the SSD scan's ``NotImplementedError``."""
+    finite loss and gradient norm with the family's backward kernel
+    launched (the SSD scan's for ssm, the attention's for the others)."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.launch.train import preset_config
     from repro_torch.models.model import Model
@@ -1964,24 +2399,12 @@ def train_families_phase(checks, torch, dev, seed: int) -> dict:
             mode="succ").batch(0)
         for fn in counters.values():
             fn.launches = 0
-        if cfg.family == "ssm":
-            try:
-                step(state, batch)
-                raised = "nothing"
-            except NotImplementedError as exc:
-                raised = str(exc)
-            checks.expect("ssd_scan" in raised and "ROADMAP" in raised,
-                          f"train {arch}: the SSD scan's NotImplementedError "
-                          f"on the card, got {raised!r}")
-            out[arch] = {"family": cfg.family, "raised": raised}
-            print(f"phase train family {arch} ({cfg.family}): raised "
-                  f"NotImplementedError: {raised}", flush=True)
-            continue
         state, m = step(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         launches = {name: fn.launches for name, fn in counters.items()}
+        bwd = "ssd_scan_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
         checks.expect(math.isfinite(loss) and math.isfinite(gnorm)
-                      and launches["flash_attention_bwd"] > 0,
+                      and launches[bwd] > 0,
                       f"train {arch}: loss {loss}, grad norm {gnorm}, "
                       f"launches {launches}")
         out[arch] = {"family": cfg.family, "loss": loss, "grad_norm": gnorm,

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.dvfs import DvfsParams
 from repro_torch.core.single_task import TaskConfig
 from repro_torch.core.tasks import TaskSet
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import FAMILIES
 from repro_torch.optim.adamw import OptState
@@ -111,15 +112,18 @@ def _stacks(cfg: ModelConfig) -> dict:
 
 
 def model_params_from_arrays(cfg: ModelConfig, tree: Mapping,
-                             device="cpu") -> dict:
+                             device=None) -> dict:
     """The port's parameters from the reference's ``Model.init`` pytree
     with numpy leaves (``jax.tree.map(np.asarray, params)``): the same keys
     and values (copied, dtypes kept, tuples kept), with each stacked
     ``[L, ...]`` group split into a list of ``L`` per-layer trees:
     ``layers`` (for ``hybrid`` a list of pattern units, each a tuple of
     layers) and the encdec's ``enc_layers``.  The hybrid's ``rem_layers``
-    tuple and ``enc_norm`` carry across as they are.  Raises on a key the
-    config's family does not have, and on stacks of the wrong depth."""
+    tuple and ``enc_norm`` carry across as they are.  ``device`` as every
+    entry point takes it (``kernels/ops.py::resolve_device``: None is the
+    card).  Raises on a key the config's family does not have, and on
+    stacks of the wrong depth."""
+    device = resolve_device(device)
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is none of {FAMILIES}")
     stacks = _stacks(cfg)
@@ -186,12 +190,14 @@ def model_params_to_arrays(cfg: ModelConfig, params: Mapping) -> dict:
     return out
 
 
-def train_state_from_arrays(cfg: ModelConfig, state, device="cpu"):
+def train_state_from_arrays(cfg: ModelConfig, state, device=None):
     """The port's ``TrainState`` from the reference's (``params``, ``opt``
     with ``m``, ``v`` and ``count``, and ``step``; numpy leaves, e.g.
     ``jax.tree.map(np.asarray, state)``): parameters and both moments
     through :func:`model_params_from_arrays`, the counts as int32
-    scalars."""
+    scalars, all on ``device`` (None is the card)."""
+    device = resolve_device(device)
+
     def count(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.int32,
                                device=device)

@@ -11,7 +11,12 @@
 // Input:  x [B, S, H, P] bf16 and b/c [B, S, N] bf16 (strided: the model
 //         passes slices of the conv output), dt [B, S, H] f32 (softplus'd),
 //         a [H] f32 (negative), init [B, H, P, N] f32 or null (zeros).
-// Output: y [B, S, H, P] bf16 (no D-skip term), fin [B, H, P, N] f32.
+// Output: y [B, S, H, P] bf16 (no D-skip term), fin [B, H, P, N] f32 and,
+//         in the instantiation with kStates (training), the f32 state
+//         entering each chunk of kQ tokens, states [B, ceil(S/kQ), H, P, N],
+//         which the backward (ssd_scan_bwd.cu) reads.  Without it the
+//         kernel compiles to what it was before the flag existed (the
+//         serving path).
 // (P, N) is (64, 128), mamba2's head dim and state size: the one shape the
 // serving path gives it.
 //
@@ -57,6 +62,16 @@
 //   in log2 units, and L is evaluated only on the diagonal tile and the
 //   tiles below it (above it the entry is 0 and its exponent could
 //   overflow).
+// - Training (kStates): the backward needs the state entering each chunk.
+//   The block holds it in f32 registers at the top of each chunk and
+//   writes it there: 268 MB at mamba2-370m's training shape, one layer's
+//   at a time under the model's per-layer remat.  It stays f32: from the
+//   same states rounded to bf16 the backward's ddt error against its plain
+//   version grows up to 3.5 times (1.9e-3 to 7.2e-3 from an initial state,
+//   4.5e-3 to 1.6e-2 at the 100m preset's (16, 64); chip_smoke.py phase
+//   "ssd backward" on an H100), as the decay term <G, s> then reads a
+//   rounded state, where bf16 would save about 0.08 ms of the backward's
+//   0.94.  Writing them adds about 0.05 ms to the forward's 0.18.
 // Measured on the card and not kept, for being no faster: mma.sync for all
 // four products, and issuing both wgmmas before building M so that they
 // overlap it.
@@ -87,6 +102,7 @@ struct Params {
   int B, S, H;
   int64_t x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss,
       y_sb, y_ss, y_sh;
+  float* states;  // last, so that the other members keep their offsets
 };
 
 // Shared memory in bytes.  The tiles read by ldmatrix are row-major with
@@ -285,7 +301,7 @@ __device__ __forceinline__ uint32_t at_b(uint32_t base, int ld, int r, int col,
               ((lane >> 3) & 1) * 8);
 }
 
-template <int P, int N>
+template <int P, int N, bool kStates>
 __global__ void __launch_bounds__(kThreads, 1) ssd_fwd(const Params p) {
   using L = Smem<P, N>;
   static_assert(P == 64 && N % 16 == 0, "one warp per 16 of P = 64 rows");
@@ -390,6 +406,22 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_fwd(const Params p) {
             pack_bf16(st[4 * nt], st[4 * nt + 1]);
         *reinterpret_cast<uint32_t*>(stw + at + 128) =
             pack_bf16(st[4 * nt + 2], st[4 * nt + 3]);
+      }
+    }
+    // Training: the f32 state entering the chunk, for the backward.
+    if constexpr (kStates) {
+      if (has_head) {
+        float* sp = p.states +
+                    ((static_cast<int64_t>(bb) * n_chunks + ch) * p.H + h) *
+                        P * N;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          *reinterpret_cast<float2*>(sp + i0 * N + col) =
+              make_float2(st[4 * nt], st[4 * nt + 1]);
+          *reinterpret_cast<float2*>(sp + i1 * N + col) =
+              make_float2(st[4 * nt + 2], st[4 * nt + 3]);
+        }
       }
     }
     // C B^T once for both heads: warp (hd, wl) computes rows wl*16..+15,
@@ -594,14 +626,15 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_fwd(const Params p) {
   }
 }
 
-template <int P, int N>
+template <int P, int N, bool kStates>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int bytes = Smem<P, N>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ssd_fwd<P, N, kStates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.H + kHeads - 1) / kHeads, p.B);
-  ssd_fwd<P, N><<<grid, kThreads, bytes, stream>>>(p);
+  ssd_fwd<P, N, kStates><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -609,12 +642,15 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // shape: B, S, H, P, N.  strides: x (batch, seq, head), dt (batch, seq,
 // head), b (batch, seq), c (batch, seq), y (batch, seq, head), in elements.
-// init may be null.  Launches on `stream`; returns cudaGetLastError() as an
-// int (cudaErrorInvalidValue for a (P, N) it was not compiled for).
+// init may be null; states null runs the serving instantiation, else the
+// one that writes the chunk states there (contiguous [B, ceil(S/64), H, P,
+// N]).  Launches on `stream`; returns cudaGetLastError() as an int
+// (cudaErrorInvalidValue for a (P, N) it was not compiled for).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* b, const void* c, const void* init,
-                               void* y, void* fin, const int64_t* shape,
-                               const int64_t* strides, void* stream) {
+                               void* y, void* fin, void* states,
+                               const int64_t* shape, const int64_t* strides,
+                               void* stream) {
   Params p;
   p.x = static_cast<const bf16*>(x);
   p.dt = static_cast<const float*>(dt);
@@ -624,6 +660,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
   p.init = static_cast<const float*>(init);
   p.y = static_cast<bf16*>(y);
   p.fin = static_cast<float*>(fin);
+  p.states = static_cast<float*>(states);
   p.B = static_cast<int>(shape[0]);
   p.S = static_cast<int>(shape[1]);
   p.H = static_cast<int>(shape[2]);
@@ -634,7 +671,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
   p.y_sb = strides[10]; p.y_ss = strides[11]; p.y_sh = strides[12];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t P = shape[3], N = shape[4];
-  if (P == 64 && N == 128) return static_cast<int>(launch<64, 128>(p, s));
+  if (P == 64 && N == 128)
+    return static_cast<int>(states ? launch<64, 128, true>(p, s)
+                                   : launch<64, 128, false>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,8 @@
 """The Mamba2 SSD chunked scan as a CUDA kernel.
 
-Prefill hot spot of the ssm family: ``models/ssm.py::ssd_chunked`` calls
-:func:`ssd_scan_kernel` once per layer.  The hand-written kernel in
-``csrc/ssd_scan.cu`` replaces the JAX package's Pallas TPU kernel
+Prefill and training hot spot of the ssm family: ``models/ssm.py::
+ssd_chunked`` calls :func:`ssd_scan_kernel` once per layer.  The
+hand-written kernel in ``csrc/ssd_scan.cu`` replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/ssd_scan.py::_kernel``, launched there by ``ssd_scan``.
 
 The contract is the model's ``ssd_chunked`` (``models/ssm.py:79-142`` of
@@ -22,7 +22,7 @@ kernel takes its own chunk of :data:`KERNEL_CHUNK` tokens whatever
 ``chunk`` the caller names: a ``[256, 256]`` float32 score tile would not
 fit a block's shared memory.  The plain version uses ``chunk``.
 
-Three functions compute it:
+The forward is computed by:
 
 * :func:`ssd_scan_plain` — ``ssd_chunked`` in plain torch (any device);
 * :func:`ssd_scan_cuda` — the CUDA kernel's wrapper, CUDA tensors only
@@ -30,10 +30,27 @@ Three functions compute it:
   (P, N) = (64, 128); the wrapper zero-pads a smaller P or N up to it
   (:func:`pad_shape`) and slices y and the final state back, which is
   exact: zero columns of x give zero rows of the state and of y, and zero
-  columns of b and c add nothing to C Bᵀ or to C s.  It counts its launches
-  in ``ssd_scan_cuda.launches``;
+  columns of b and c add nothing to C Bᵀ or to C s.  With ``states=True``
+  it also returns the float32 state entering each chunk of
+  :data:`KERNEL_CHUNK` tokens (plain version :func:`ssd_chunk_states_plain`),
+  which the backward reads.  It counts its launches in
+  ``ssd_scan_cuda.launches``;
 * :func:`ssd_scan_kernel` — the dispatcher: a CPU tensor goes to the plain
-  version, a CUDA tensor to the kernel (or an error).
+  version (autograd differentiates it), a CUDA tensor to the kernel, through
+  :class:`SSDScan` where it needs a gradient (or an error).
+
+The gradient, with the final state's cotangent, which the JAX package takes
+with ``jax.grad`` of ``ssd_chunked`` (it has no Pallas backward), by:
+
+* :func:`ssd_scan_bwd_plain` — the backward of :func:`ssd_scan_plain`
+  written out formula for formula (:func:`ssd_scan_bwd_terms` gives its
+  float32 terms);
+* :func:`ssd_scan_bwd_cuda` — the wrapper of ``csrc/ssd_scan_bwd.cu``
+  (two kernels: the state cotangent chunk by chunk from the last, then
+  every chunk's gradients), padded as the forward; launches counted in
+  ``ssd_scan_bwd_cuda.launches``, one per call;
+* :class:`SSDScan` — the ``torch.autograd.Function`` that runs the forward
+  kernel with its chunk states and the backward kernel.
 """
 
 from __future__ import annotations
@@ -44,12 +61,19 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import _aligned
 
 #: the CUDA kernel's chunk length (csrc kQ)
 KERNEL_CHUNK = 64
 #: (P, N) the CUDA kernel is compiled for, mamba2's head dim and state; a
 #: smaller P or N is zero-padded up to it, a larger one refused
 KERNEL_P, KERNEL_N = 64, 128
+
+
+def n_chunks(S: int) -> int:
+    """Chunks of :data:`KERNEL_CHUNK` tokens the kernels split S into (the
+    last one ragged where S is not a multiple)."""
+    return -(-S // KERNEL_CHUNK)
 
 
 def pad_shape(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -72,6 +96,15 @@ def pad_shape(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return x, b, c, init_state
 
 
+def pad_tokens(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [B, S, ...] zero-padded along S to ``n_chunks(S) *
+    KERNEL_CHUNK`` tokens.  Tokens of dt = 0 carry the state unchanged, so
+    x, dt, b, c (and dy) padded so give the scan's y, final state and
+    gradients on the real tokens, chunked as the kernels chunk them."""
+    pad = n_chunks(t.shape[1]) * KERNEL_CHUNK - t.shape[1]
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
 def segsum(dA: torch.Tensor) -> torch.Tensor:
     """Lower-triangular pairwise decay exponents: dA [..., Q] ->
     [..., Q, Q] with ``[i, j] = sum_{j < m <= i} dA_m`` for i >= j, -inf
@@ -88,13 +121,12 @@ def segsum(dA: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                   b: torch.Tensor, c: torch.Tensor, chunk: int,
-                   init_state: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``ssd_chunked`` in plain torch, operation for
-    operation: matmul inputs in x's dtype (bfloat16 in the model), float32
-    accumulation, chunk ``min(chunk, S)`` shrunk to a divisor of S."""
+def _chunked(x, dt, a, b, c, chunk, init_state):
+    """The forward's chunked terms, as :func:`ssd_scan_plain` computes
+    them: (chunk Q, xd chunks [B,NC,Q,H,P] in x's dtype, b and c chunks
+    [B,NC,Q,N] in x's dtype, cum [B,NC,Q,H], L [B,NC,H,Q,Q], the f32
+    M = (C B^T) ⊙ L, the state entering each chunk [B,NC,H,P,N] and the
+    final state, both f32)."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     Q = min(chunk, S)
@@ -118,7 +150,6 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     L = torch.exp(segsum(dAc.permute(0, 1, 3, 2)))              # [B,NC,H,Q,Q]
     scores = torch.einsum("bcqn,bckn->bcqk", mm(cc), mm(bc))    # [B,NC,Q,Q]
     m = scores[:, :, None, :, :] * L                            # [B,NC,H,Q,Q]
-    y_diag = torch.einsum("bchqk,bckhp->bcqhp", mm(m), mm(xc))
 
     # --- chunk states: sum_k exp(cum_last - cum_k) B_k xd_k^T
     cum = torch.cumsum(dAc, dim=2)                              # [B,NC,Q,H]
@@ -135,6 +166,25 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         prev.append(carry)
         carry = carry * chunk_decay[:, ci, :, None, None] + states[:, ci]
     prev_states = torch.stack(prev, dim=1)                      # [B,NC,H,P,N]
+    return Q, xc, bc, cc, cum, L, m, prev_states, carry
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, chunk: int,
+                   init_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``ssd_chunked`` in plain torch, operation for
+    operation: matmul inputs in x's dtype (bfloat16 in the model), float32
+    accumulation, chunk ``min(chunk, S)`` shrunk to a divisor of S."""
+    B, S, H, P = x.shape
+    cd = x.dtype
+
+    def mm(t):
+        return t.to(cd).float()
+
+    _, xc, _, cc, cum, _, m, prev_states, carry = _chunked(
+        x, dt, a, b, c, chunk, init_state)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", mm(m), mm(xc))
 
     # --- state -> output within each chunk.
     state_decay = torch.exp(cum)                                # [B,NC,Q,H]
@@ -145,20 +195,140 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), carry
 
 
+def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
+                           a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                           init_state: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The plain version of what ``ssd_scan_cuda(..., states=True)`` adds:
+    the float32 state entering each chunk of :data:`KERNEL_CHUNK` tokens,
+    ``[B, n_chunks(S), H, P, N]`` (a ragged S scanned as if padded with
+    tokens of dt = 0, which carry the state unchanged)."""
+    x, dt, b, c = (pad_tokens(t) for t in (x, dt, b, c))
+    return _chunked(x, dt, a, b, c, KERNEL_CHUNK, init_state)[7]
+
+
+def ssd_scan_bwd_terms(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, chunk: int,
+                       init_state: Optional[torch.Tensor],
+                       dy: torch.Tensor, dfinal: Optional[torch.Tensor]
+                       ) -> dict:
+    """The float32 terms :func:`ssd_scan_bwd_plain` assembles the gradient
+    from: ``dxd`` [B, S, H, P] (the cotangent of dt x), ``ddA`` [B, S, H]
+    (of dt a), ``dcum_off`` [B, S, H] (the off-chunk term exp(cum) dy ·
+    (s C) of d cum, whose reverse cumsum within each chunk is its part of
+    ``ddA``), ``db``, ``dc`` [B, S, N] and ``dinit``
+    (None without ``init_state``).  ``chip_smoke.py`` renders faults of
+    the backward from them."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    cd = x.dtype
+
+    def mm(t):
+        return t.to(cd).float()
+
+    def suffix_sum(t):  # over the chunk's tokens, from each one to the end
+        return torch.flip(torch.cumsum(torch.flip(t, (2,)), dim=2), (2,))
+
+    Q, xc, bc, cc, cum, L, m, prev, _ = _chunked(
+        x, dt, a, b, c, chunk, init_state)
+    NC = S // Q
+    xc, bc, cc = xc.float(), bc.float(), cc.float()
+    dyc = dy.float().reshape(B, NC, Q, H, P)
+    e = torch.exp(cum)                                          # [B,NC,Q,H]
+    w = torch.exp(cum[:, :, -1:, :] - cum)                      # [B,NC,Q,H]
+    decay = torch.exp(cum[:, :, -1, :])                         # [B,NC,H]
+
+    # The state cotangent, chunk by chunk from the last: G[:, ci] is that of
+    # the state leaving chunk ci.
+    dyw = mm(e[..., None] * dyc)                                # [B,NC,Q,H,P]
+    inflow = torch.einsum("bcqhp,bcqn->bchpn", dyw, cc)         # [B,NC,H,P,N]
+    g = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if dfinal is None else dfinal.float())
+    gs = [None] * NC
+    for ci in reversed(range(NC)):
+        gs[ci] = g
+        g = g * decay[:, ci, :, None, None] + inflow[:, ci]
+    G = torch.stack(gs, dim=1)                                  # [B,NC,H,P,N]
+    Gr, sr = mm(G), mm(prev)
+
+    # Inside each chunk.
+    dM = torch.einsum("bcqhp,bckhp->bchqk", mm(dyc), xc)        # [B,NC,H,Q,Q]
+    dS = mm((dM * L).sum(dim=2))                                # [B,NC,Q,Q]
+    T = dM * m
+    dcum = (T.sum(dim=-1) - T.sum(dim=-2)).permute(0, 1, 3, 2)  # [B,NC,Q,H]
+    U = torch.einsum("bckn,bchpn->bckhp", bc, Gr)               # [B,NC,Q,H,P]
+    dxd = (torch.einsum("bchqk,bcqhp->bckhp", mm(m), mm(dyc))
+           + w[..., None] * U)
+    dw = (xc * U).sum(dim=-1)                                   # [B,NC,Q,H]
+    V = torch.einsum("bcqn,bchpn->bcqhp", cc, sr)
+    off = e * (dyc * V).sum(dim=-1)
+    dcum = dcum + off - w * dw
+    last = ((w * dw).sum(dim=2)
+            + decay * (G * prev).sum(dim=(-2, -1)))             # [B,NC,H]
+    dcum[:, :, -1] += last
+
+    dc = (torch.einsum("bcqk,bckn->bcqn", dS, bc)
+          + torch.einsum("bcqhp,bchpn->bcqn", dyw, sr))
+    db = (torch.einsum("bcqk,bcqn->bckn", dS, cc)
+          + (w[..., None] * torch.einsum("bckhp,bchpn->bckhn", xc, Gr))
+          .sum(dim=3))
+    return {"dxd": dxd.reshape(B, S, H, P),
+            "ddA": suffix_sum(dcum).reshape(B, S, H),
+            "dcum_off": off.reshape(B, S, H),
+            "db": db.reshape(B, S, N), "dc": dc.reshape(B, S, N),
+            "dinit": None if init_state is None else g}
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, chunk: int,
+                       init_state: Optional[torch.Tensor],
+                       dy: torch.Tensor, dfinal: Optional[torch.Tensor]):
+    """The gradient of :func:`ssd_scan_plain` written out formula for
+    formula (no autograd): the cotangents ``dy`` of y and ``dfinal`` of the
+    final state (None: zero) give ``(dx, ddt, da, db, dc, dinit)``, dx, db
+    and dc in x's dtype, ddt, da and dinit float32 (dinit None where
+    ``init_state`` is None).  It is the arithmetic of ``csrc/ssd_scan_bwd
+    .cu``: every product takes its inputs rounded to x's dtype and sums in
+    float32, everything else is float32.
+
+    Per chunk, with cum the inclusive cumsum of dt a, L[i, j] =
+    exp(cum_i - cum_j) (i >= j), M = (C B^T) ⊙ L, w_j = exp(cum_last -
+    cum_j), s the state entering the chunk and G the cotangent of the state
+    leaving it::
+
+        G_prev = exp(cum_last) G + (exp(cum) ⊙ dy)^T C    (G_last = dfinal)
+        dM     = dy xd^T,  dS = sum_h dM ⊙ L,  T = dM ⊙ M
+        dxd    = M^T dy + w ⊙ (B G^T),  dw_j = xd_j · (G B_j)
+        dC     = dS B + sum_h (exp(cum) ⊙ dy) s,  dB = dS^T C + sum_h w ⊙ (xd G)
+        dcum_i = sum_j T_ij - sum_j T_ji + exp(cum_i) dy_i · (s C_i)
+                 - w_i dw_i,  dcum_last += sum_j w_j dw_j
+                 + exp(cum_last) <G, s>
+        d(dA)  = the reverse cumsum of dcum within the chunk
+        ddt    = d(dA) a + sum_p dxd x,  dx = dxd dt,  da = sum d(dA) dt
+    """
+    cd = x.dtype
+    t = ssd_scan_bwd_terms(x, dt, a, b, c, chunk, init_state, dy, dfinal)
+    ddA, dxd = t["ddA"], t["dxd"]
+    ddt = ddA * a.float() + (dxd * x.float()).sum(dim=-1)
+    dx = dxd * dt.float()[..., None]
+    da = (ddA * dt.float()).sum(dim=(0, 1))
+    return (dx.to(cd), ddt, da, t["db"].to(cd), t["dc"].to(cd), t["dinit"])
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel.
 # ---------------------------------------------------------------------------
 
 
 def _library():
-    """The built kernel library with its C signature declared."""
+    """The built forward kernel library with its C signature declared."""
     lib = build.load("ssd_scan")
     if not getattr(lib, "_ssd_scan_typed", False):
         lib.ssd_scan_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
         lib.ssd_scan_launch.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -166,31 +336,73 @@ def _library():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device, dtype,
-           dims: int, vector_rows: bool):
+def _bwd_library():
+    """The built backward kernel library with its C signature declared."""
+    lib = build.load("ssd_scan_bwd")
+    if not getattr(lib, "_ssd_scan_bwd_typed", False):
+        lib.ssd_scan_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.POINTER(ctypes.c_int64)] * 2
+            + [ctypes.c_void_p])
+        lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+        lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+        lib._ssd_scan_bwd_typed = True
+    return lib
+
+
+def _check(fn: str, name: str, t: torch.Tensor, device: torch.device,
+           dtype, dims: int, vector_rows: bool):
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"ssd_scan_cuda takes CUDA tensors; {name} is on "
+        raise ValueError(f"{fn} takes CUDA tensors; {name} is on "
                          f"{getattr(t, 'device', type(t).__name__)}")
     if t.device != device:
-        raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, x on "
-                         f"{device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
-        raise TypeError(f"ssd_scan_cuda takes {dtype} {name}, got {t.dtype}")
+        raise TypeError(f"{fn} takes {dtype} {name}, got {t.dtype}")
     if t.dim() != dims:
-        raise ValueError(f"ssd_scan_cuda: {name} must be {dims}-D, got "
+        raise ValueError(f"{fn}: {name} must be {dims}-D, got "
                          f"{tuple(t.shape)}")
-    # x, b, c are read 8 bf16 (16 bytes) at a time along their last axis.
+    # x, b, c and dy are read 8 bf16 (16 bytes) at a time along their last
+    # axis.
     if vector_rows and (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
                         or t.data_ptr() % 16):
-        raise ValueError(f"ssd_scan_cuda: {name} needs a unit last stride, "
-                         "other strides multiples of 8 elements and a 16-byte "
+        raise ValueError(f"{fn}: {name} needs a unit last stride, other "
+                         "strides multiples of 8 elements and a 16-byte "
                          f"aligned base; got strides {t.stride()}")
+
+
+def _check_operands(fn: str, x, dt, a, b, c, init_state):
+    """The checks both wrappers make of the forward's operands; returns
+    (B, S, H, P, N)."""
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError(f"{fn} takes CUDA tensors; x is on "
+                         f"{getattr(x, 'device', type(x).__name__)}")
+    dev = x.device
+    _check(fn, "x", x, dev, torch.bfloat16, 4, True)
+    _check(fn, "b", b, dev, torch.bfloat16, 3, True)
+    _check(fn, "c", c, dev, torch.bfloat16, 3, True)
+    _check(fn, "dt", dt, dev, torch.float32, 3, False)
+    _check(fn, "a", a, dev, torch.float32, 1, False)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if (b.shape != (B, S, N) or c.shape != (B, S, N)
+            or dt.shape != (B, S, H) or a.shape != (H,)):
+        raise ValueError(
+            f"{fn}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+            f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)} do not "
+            "form x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N]")
+    if init_state is not None:
+        _check(fn, "init_state", init_state, dev, torch.float32, 4, False)
+        if init_state.shape != (B, H, P, N):
+            raise ValueError(f"{fn}: init_state {tuple(init_state.shape)}"
+                             f" is not [B, H, P, N] = {(B, H, P, N)}")
+    return B, S, H, P, N
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor,
-                  init_state: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  init_state: Optional[torch.Tensor] = None, *,
+                  states: bool = False):
     """Launch ``csrc/ssd_scan.cu``: x ``[B, S, H, P]`` and b/c ``[B, S, N]``
     bfloat16 (any strides with a unit last stride: the model passes slices
     of the conv output), dt ``[B, S, H]`` and a ``[H]`` float32,
@@ -198,39 +410,30 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     N up to 128 (smaller ones run zero-padded).  Returns ``(y [B, S, H, P]
     bf16, final_state [B, H, P, N] f32)``, still being computed on the
     current stream (slices of the padded outputs where P or N was padded).
-    Builds the kernel with ``nvcc`` at first use.  Raises on any other
-    input, and if the launch is refused."""
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError("ssd_scan_cuda takes CUDA tensors; x is on "
-                         f"{getattr(x, 'device', type(x).__name__)}")
+    With ``states`` the kernel's other instantiation also writes the
+    float32 state entering each chunk of :data:`KERNEL_CHUNK` tokens, which
+    the backward reads, and the result gains it as a third entry: ``[B,
+    n_chunks(S), H, KERNEL_P, KERNEL_N]``, in the padded shape the backward
+    takes.  Builds the kernel with ``nvcc`` at first use.  Raises on any
+    other input, and if the launch is refused."""
+    fn = "ssd_scan_cuda"
+    B, S, H, P, N = _check_operands(fn, x, dt, a, b, c, init_state)
     dev = x.device
-    _check("x", x, dev, torch.bfloat16, 4, True)
-    _check("b", b, dev, torch.bfloat16, 3, True)
-    _check("c", c, dev, torch.bfloat16, 3, True)
-    _check("dt", dt, dev, torch.float32, 3, False)
-    _check("a", a, dev, torch.float32, 1, False)
-    B, S, H, P = x.shape
-    N = b.shape[-1]
-    if (b.shape != (B, S, N) or c.shape != (B, S, N)
-            or dt.shape != (B, S, H) or a.shape != (H,)):
-        raise ValueError(
-            f"ssd_scan_cuda: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
-            f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)} do not "
-            "form x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N]")
-    if init_state is not None:
-        _check("init_state", init_state, dev, torch.float32, 4, False)
-        if init_state.shape != (B, H, P, N):
-            raise ValueError(f"ssd_scan_cuda: init_state {tuple(init_state.shape)}"
-                             f" is not [B, H, P, N] = {(B, H, P, N)}")
     x, b, c, init_state = pad_shape(x, b, c, init_state)
     if init_state is not None:
         init_state = init_state.contiguous()
     y = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=dev)
     final = torch.empty((B, H, KERNEL_P, KERNEL_N), dtype=torch.float32,
                         device=dev)
+    chunk_states = (torch.empty((B, n_chunks(S), H, KERNEL_P, KERNEL_N),
+                                dtype=torch.float32, device=dev)
+                    if states else None)
+    out = (y[..., :P], final[:, :, :P, :N]) if (P, N) != (
+        KERNEL_P, KERNEL_N) else (y, final)
+    out = out + (chunk_states,) if states else out
     if y.numel() == 0:
         final.copy_(init_state if init_state is not None else 0.0)
-        return y[..., :P], final[:, :, :P, :N]
+        return out
     a = a.contiguous()
     lib = _library()
     shape = (ctypes.c_int64 * 5)(B, S, H, KERNEL_P, KERNEL_N)
@@ -245,17 +448,127 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), final.data_ptr(), shape, strides, stream)
+            y.data_ptr(), final.data_ptr(),
+            chunk_states.data_ptr() if states else None, shape, strides,
+            stream)
     if rc != 0:
         raise RuntimeError("ssd_scan kernel launch failed: "
                            + lib.ssd_scan_error_string(rc).decode())
     ssd_scan_cuda.launches += 1
-    if (P, N) != (KERNEL_P, KERNEL_N):
-        return y[..., :P], final[:, :, :P, :N]
-    return y, final
+    return out
 
 
 ssd_scan_cuda.launches = 0
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor, states: torch.Tensor,
+                      dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None):
+    """Launch ``csrc/ssd_scan_bwd.cu`` (its two kernels: the state
+    cotangent chunk by chunk from the last, then every chunk's gradients):
+    x, dt, a, b, c as :func:`ssd_scan_cuda` takes them, ``states`` the
+    chunk states ``ssd_scan_cuda(..., states=True)`` wrote for them, dy
+    ``[B, S, H, P]`` bfloat16 under the same stride rules as x, ``dfinal``
+    ``[B, H, P, N]`` float32 or None (zero).  Returns ``(dx, ddt, da, db,
+    dc, dinit)`` as :func:`ssd_scan_bwd_plain` does, dinit always, still
+    being computed on the current stream.  Zero-pads P and N as the
+    forward does (dy and dfinal too) and slices the gradients back.  ``da``
+    is a ``torch.sum`` over batch and chunks of the kernel's per-chunk
+    partial sums, a fixed order.  Counts one launch per call in
+    ``ssd_scan_bwd_cuda.launches``.  Raises on any other input and if a
+    launch is refused."""
+    fn = "ssd_scan_bwd_cuda"
+    B, S, H, P, N = _check_operands(fn, x, dt, a, b, c, None)
+    dev = x.device
+    _check(fn, "dy", dy, dev, torch.bfloat16, 4, True)
+    if dy.shape != x.shape:
+        raise ValueError(f"{fn}: dy {tuple(dy.shape)} must be shaped as x "
+                         f"{tuple(x.shape)}")
+    nc = n_chunks(S)
+    want = (B, nc, H, KERNEL_P, KERNEL_N)
+    if (not isinstance(states, torch.Tensor) or states.device != dev
+            or states.dtype != torch.float32 or states.shape != want
+            or not states.is_contiguous()):
+        raise ValueError(f"{fn}: states must be the forward's contiguous "
+                         f"float32 {want} chunk states on {dev}")
+    if dfinal is not None:
+        _check(fn, "dfinal", dfinal, dev, torch.float32, 4, False)
+        if dfinal.shape != (B, H, P, N):
+            raise ValueError(f"{fn}: dfinal {tuple(dfinal.shape)} is not "
+                             f"[B, H, P, N] = {(B, H, P, N)}")
+    x, b, c, dfinal = pad_shape(x, b, c, dfinal)
+    if P < KERNEL_P:
+        dy = torch.nn.functional.pad(dy, (0, KERNEL_P - P))
+    if dfinal is not None:
+        dfinal = dfinal.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=dev)
+    ddt = torch.empty((B, S, H), **f32)
+    da_part = torch.empty((B, nc, H), **f32)
+    db, dc = (torch.empty((B, S, KERNEL_N), dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    dinit = torch.empty((B, H, KERNEL_P, KERNEL_N), **f32)
+    if dx.numel() == 0:
+        for t in (dx, ddt, da_part, db, dc):
+            t.zero_()
+        dinit.copy_(dfinal if dfinal is not None else 0.0)
+    else:
+        ds = torch.empty(want, **f32)   # the state cotangents, kernel 1 -> 2
+        a = a.contiguous()
+        lib = _bwd_library()
+        shape = (ctypes.c_int64 * 5)(B, S, H, KERNEL_P, KERNEL_N)
+        strides = (ctypes.c_int64 * 13)(
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            dy.stride(0), dy.stride(1), dy.stride(2))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.ssd_scan_bwd_launch(
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                dfinal.data_ptr() if dfinal is not None else None,
+                ds.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                da_part.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                dinit.data_ptr(), shape, strides, stream)
+        if rc != 0:
+            raise RuntimeError("ssd_scan backward kernel launch failed: "
+                               + lib.ssd_scan_bwd_error_string(rc).decode())
+        ssd_scan_bwd_cuda.launches += 1
+    da = da_part.sum(dim=(0, 1))
+    if (P, N) != (KERNEL_P, KERNEL_N):
+        return (dx[..., :P], ddt, da, db[..., :N], dc[..., :N],
+                dinit[:, :, :P, :N])
+    return dx, ddt, da, db, dc, dinit
+
+
+ssd_scan_bwd_cuda.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan on the card with a gradient: the forward kernel, which
+    also writes the state entering each chunk, and the backward kernel.
+    The gradient is the JAX package's ``jax.grad`` of the same function
+    (``ssd_chunked``), the final state's cotangent included, computed by
+    hand-written kernels.  Gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, init_state):
+        y, final, states = ssd_scan_cuda(x, dt, a, b, c, init_state,
+                                         states=True)
+        ctx.save_for_backward(x, dt, a, b, c, states)
+        ctx.has_init = init_state is not None
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, b, c, states = ctx.saved_tensors
+        dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+              if dy is None else _aligned(dy))
+        dx, ddt, da, db, dc, dinit = ssd_scan_bwd_cuda(
+            x, dt, a, b, c, states, dy, dfinal)
+        return dx, ddt, da, db, dc, dinit if ctx.has_init else None
 
 
 def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -265,18 +578,14 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """``(y, final_state)`` on x's device: a CPU tensor is computed by
     :func:`ssd_scan_plain` with ``chunk`` (autograd differentiates it), a
     CUDA tensor by the CUDA kernel with its own :data:`KERNEL_CHUNK` (the
-    same function).  The kernel has no backward yet: on a CUDA tensor that
-    needs a gradient this raises ``NotImplementedError``, and never falls
-    back to the plain version."""
+    same function): through :class:`SSDScan` and its backward kernel where
+    grad is enabled and an input requires it, else the forward alone."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk, init_state)
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad
                 for t in (x, dt, a, b, c, init_state)):
-            raise NotImplementedError(
-                "ssd_scan has no backward kernel on the card yet (ROADMAP.md "
-                "Queue 1, item 1: the ssd_scan backward kernel); the ssm "
-                "family trains on the CPU (device='cpu') until then")
+            return SSDScan.apply(x, dt, a, b, c, init_state)
         return ssd_scan_cuda(x, dt, a, b, c, init_state)
     raise ValueError(f"no ssd_scan for device {x.device}")

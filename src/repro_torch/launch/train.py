@@ -9,8 +9,8 @@ assigned config verbatim; ``smoke`` reduces it to CPU scale; ``100m`` is a
 ~100M-parameter same-family config, and ``--preset 100m --steps 300
 --batch 8 --seq 256 --lr 3e-3`` with checkpoints is the twin of
 ``examples/train_100m.py``.  Without ``--device`` it runs on the CUDA card
-and raises without one.  The ssm family has no backward kernel for its SSD
-scan yet, so it trains with ``--device cpu`` only.
+and raises without one; every family trains there (the ssm family's SSD
+scan through its forward and backward kernels).
 """
 
 from __future__ import annotations

@@ -20,9 +20,9 @@ Every attention prefill goes through the ``flash_attention`` kernel on the
 card (whisper's encoder and cross-attention non-causal, the vlm image
 prefix bidirectional), every SSD prefill through ``ssd_scan``.  Training
 (``forward``, ``loss_fn``) runs the same attention through the kernel's
-``torch.autograd.Function``, whose backward is a kernel too; the SSD kernel
-has no backward yet, so the ssm family trains on the CPU only (on the card
-``ssd_scan_kernel`` raises).  Remat is one
+``torch.autograd.Function``, whose backward is a kernel too, and every SSD
+layer through ``ssd_scan``'s (``SSDScan``), so every family trains on the
+card.  Remat is one
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per layer,
 per hybrid unit and per encoder layer, where the reference has its
 per-layer ``jax.checkpoint``.  The reference's ``stack_layers`` and

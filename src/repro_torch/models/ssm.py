@@ -70,8 +70,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     On a CUDA tensor this is the hand-written ``ssd_scan`` kernel
     (``kernels/csrc/ssd_scan.cu``, the kernel the JAX package wrote in
-    Pallas for this function), which takes its own chunk length; on the
-    CPU its plain torch version with ``chunk``."""
+    Pallas for this function), which takes its own chunk length, and where
+    an input needs a gradient its backward kernel
+    (``kernels/csrc/ssd_scan_bwd.cu``, through ``SSDScan``); on the CPU its
+    plain torch version with ``chunk``, which autograd differentiates."""
     return ssd_scan_kernel(x, dt, a, b_in, c_in, chunk, init_state)
 
 

@@ -60,7 +60,7 @@ def _pair(arch):
         rparams, _ = rm.init(jax.random.key(0))
         cfg = get_config(arch).reduced()
         params = model_params_from_arrays(
-            cfg, jax.tree.map(np.asarray, rparams))
+            cfg, jax.tree.map(np.asarray, rparams), device="cpu")
         _MODELS[arch] = (rm, rparams, Model(cfg, device="cpu"), params,
                          jax.jit(rm.decode_step))
     return _MODELS[arch]
@@ -223,7 +223,8 @@ def test_init_shapes_match_jax(arch):
     rm, rparams, m = _pair(arch)[:3]
     mine = m.init(0)
     conv = model_params_from_arrays(
-        m.cfg, jax.tree.map(lambda x: np.zeros(x.shape, np.float32), rparams))
+        m.cfg, jax.tree.map(lambda x: np.zeros(x.shape, np.float32), rparams),
+        device="cpu")
 
     def shapes(tree):
         return {k: (tuple(t.shape), t.dtype) for k, t in _flat(tree).items()}
@@ -285,7 +286,7 @@ def test_convert_rejects_a_wrong_depth():
     import dataclasses
     deeper = dataclasses.replace(m.cfg, n_layers=m.cfg.n_layers + 1)
     with pytest.raises(ValueError, match="layer stacks"):
-        model_params_from_arrays(deeper, tree)
+        model_params_from_arrays(deeper, tree, device="cpu")
 
 
 @pytest.mark.parametrize("arch,key", [("h2o-danube-1.8b", "rem_layers"),
@@ -296,7 +297,7 @@ def test_convert_rejects_a_layout_of_another_family(arch, key):
     tree = dict(jax.tree.map(np.asarray, rparams))
     tree[key] = tree["final_norm"]
     with pytest.raises(ValueError, match="no part of"):
-        model_params_from_arrays(m.cfg, tree)
+        model_params_from_arrays(m.cfg, tree, device="cpu")
 
 
 def full_width_gap(arch: str, n_layers: int, s0: int = 60, steps: int = 4):
@@ -310,7 +311,8 @@ def full_width_gap(arch: str, n_layers: int, s0: int = 60, steps: int = 4):
     rm = RModel(rcfg)
     rparams, _ = rm.init(jax.random.key(0))
     m = Model(cfg, device="cpu")
-    params = model_params_from_arrays(cfg, jax.tree.map(np.asarray, rparams))
+    params = model_params_from_arrays(cfg, jax.tree.map(np.asarray, rparams),
+                                      device="cpu")
     tok = _tokens(cfg, 2, s0 + steps, seed=0)
     max_seq = s0 + steps + 16
     rpre = jax.jit(lambda t: rm.prefill(rparams, {"tokens": t},

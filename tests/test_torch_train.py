@@ -54,7 +54,7 @@ def _jax_pair(arch):
     rparams, _ = rm.init(jax.random.key(0))
     cfg = get_config(arch).reduced()
     return rm, rparams, cfg, model_params_from_arrays(
-        cfg, jax.tree.map(np.asarray, rparams))
+        cfg, jax.tree.map(np.asarray, rparams), device="cpu")
 
 
 def _grads(model, params, batch, remat=True):
@@ -212,10 +212,11 @@ def test_adamw_update_matches_reference():
         jax.tree.map(jnp.asarray, grads), rstate.opt, rstate.params)
 
     cfg = get_config(arch).reduced()
-    state = train_state_from_arrays(cfg, jax.tree.map(np.asarray, rstate))
+    state = train_state_from_arrays(cfg, jax.tree.map(np.asarray, rstate),
+                                    device="cpu")
     opt = AdamW(learning_rate=cosine_schedule(1e-2, 3, 10), clip_norm=1.0)
-    new, opt_state, met = opt.update(model_params_from_arrays(cfg, grads),
-                                     state.opt, state.params)
+    grads = model_params_from_arrays(cfg, grads, device="cpu")
+    new, opt_state, met = opt.update(grads, state.opt, state.params)
     assert float(met["grad_norm"]) == pytest.approx(float(rmet["grad_norm"]),
                                                     rel=1e-6)
     assert float(met["lr"]) == pytest.approx(float(rmet["lr"]), rel=1e-6)
