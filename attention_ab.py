@@ -47,10 +47,28 @@ either build holds.
 
 ``--ssd-parent`` holds this tree's SSD forward without its chunk states
 (the serving instantiation) against another ``ssd_scan.cu`` whose entry
-point has no states pointer: outputs bit-equal or not at
+point has no states pointer (pass ``--ssd-states-arg`` for a source whose
+entry point takes one after the final state; it is passed null): outputs
+bit-equal or not at
 ``chip_smoke.SSD_SHAPE``, times in ``TURNS``, and the instructions of the
-two builds' ``ssd_fwd<64, 128>`` that differ.  The options may be given
-alone or together.  Prints the card's name and power limit first.  Exits
+two builds' ``ssd_fwd<64, 128>`` that differ.
+
+    git show <commit>:src/repro_torch/kernels/csrc/ssd_scan_bwd.cu \\
+        > build/parent_ssd_scan_bwd.cu
+    python3 attention_ab.py --ssd-bwd-parent build/parent_ssd_scan_bwd.cu
+
+``--ssd-bwd-parent`` times this tree's SSD backward against another
+``ssd_scan_bwd.cu`` of the same C entry point, both built with this tree's
+flags and called with the same arguments (x, b and c slices of one
+activation, as the model passes them; the chunk states from this tree's
+forward; P and N zero-padded as the wrapper pads them) at every shape of
+``chip_smoke.SSD_BWD_SHAPES``, in ``TURNS``.  It prints each side's
+medians, each launch's device time by kernel name (``torch.profiler``),
+the two sides' normalised error against each other for dx, ddt, da, db,
+dc and dinit (they sum in other orders, so bit-equality is not
+expected), whether two calls of a side are bit-equal, and, where
+``cuobjdump`` is found, the counts of ``SSD_BWD_OPCODES`` in each backward
+kernel of either build.  The options may be given alone or together.  Prints the card's name and power limit first.  Exits
 non-zero without a card or if a build or launch fails.
 """
 
@@ -78,6 +96,10 @@ TURNS = ("other", "this", "this", "other") * 4
 BWD_SHAPES = ("danube", "recurrentgemma", "internvl_prefix", "dh160_padded")
 # SASS instructions counted in each backward kernel.
 BWD_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
+# ... and in each SSD backward kernel: loads (TMA, bulk, cp.async, plain),
+# products (wgmma, mma.sync), block barriers, shared-memory traffic.
+SSD_BWD_OPCODES = ("UTMALDG", "UBLKCP", "LDGSTS", "LDG", "HGMMA", "HMMA",
+                   "BAR", "LDSM", "LDS", "STS", "STG")
 
 
 def sass(cuobjdump: str, lib: Path, pattern: str) -> list:
@@ -96,10 +118,10 @@ def sass(cuobjdump: str, lib: Path, pattern: str) -> list:
 
 
 def kernel_opcodes(cuobjdump: str, lib: Path, pattern: str,
-                   label) -> dict:
+                   label, opcodes=BWD_OPCODES) -> dict:
     """Per kernel of ``lib`` whose mangled name matches ``pattern``, by its
     ``label`` ("name<template arguments>"): how many instructions of each
-    of ``BWD_OPCODES`` it holds."""
+    of ``opcodes`` it holds."""
     out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                          text=True, check=True).stdout
     counts = {}
@@ -109,7 +131,7 @@ def kernel_opcodes(cuobjdump: str, lib: Path, pattern: str,
             ops = re.findall(
                 r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body)
             counts["%s<%s>" % label(name)] = {
-                op: sum(o == op for o in ops) for op in BWD_OPCODES}
+                op: sum(o == op for o in ops) for op in opcodes}
     return counts
 
 
@@ -123,14 +145,21 @@ def main(argv=None) -> int:
     ap.add_argument("--ssd-parent", type=Path,
                     help="another ssd_scan.cu, from before its chunk states "
                          "pointer")
+    ap.add_argument("--ssd-bwd-parent", type=Path,
+                    help="another ssd_scan_bwd.cu of the same C interface")
+    ap.add_argument("--ssd-states-arg", action="store_true",
+                    help="the other ssd_scan.cu's entry point takes a chunk "
+                         "states pointer after the final state")
     ap.add_argument("--prefix-arg", action="store_true",
                     help="the other source's entry point takes a prefix")
     ap.add_argument("--lse-arg", action="store_true",
                     help="the other source's entry point takes an lse "
                          "pointer after o")
     args = ap.parse_args(argv)
-    if (args.parent, args.bwd_parent, args.ssd_parent) == (None,) * 3:
-        ap.error("give --parent, --bwd-parent, --ssd-parent or several")
+    if (args.parent, args.bwd_parent, args.ssd_parent,
+            args.ssd_bwd_parent) == (None,) * 4:
+        ap.error("give --parent, --bwd-parent, --ssd-parent, "
+                 "--ssd-bwd-parent or several")
 
     import torch
 
@@ -151,7 +180,10 @@ def main(argv=None) -> int:
     if args.bwd_parent is not None:
         backward_ab(args.bwd_parent, torch, chip_smoke, build, fa, results)
     if args.ssd_parent is not None:
-        ssd_ab(args.ssd_parent, torch, chip_smoke, build, results)
+        ssd_ab(args.ssd_parent, args.ssd_states_arg, torch, chip_smoke,
+               build, results)
+    if args.ssd_bwd_parent is not None:
+        ssd_bwd_ab(args.ssd_bwd_parent, torch, chip_smoke, build, results)
     print(json.dumps(results), flush=True)
     return 0
 
@@ -352,10 +384,12 @@ def backward_ab(parent: Path, torch, chip_smoke, build, fa, results: dict):
                       flush=True)
 
 
-def ssd_ab(parent: Path, torch, chip_smoke, build, results: dict):
+def ssd_ab(parent: Path, states_arg: bool, torch, chip_smoke, build,
+           results: dict):
     """This tree's SSD forward kernel without its chunk states (the serving
-    instantiation) against the ``ssd_scan.cu`` at ``parent``, a source from
-    before the states pointer, at ``chip_smoke.SSD_SHAPE`` with x, b and c
+    instantiation) against the ``ssd_scan.cu`` at ``parent`` (whose entry
+    point takes a states pointer where ``states_arg``, passed null) at
+    ``chip_smoke.SSD_SHAPE`` with x, b and c
     strided as the model passes them; then the two builds' SASS of that
     instantiation; into ``results``."""
     import math
@@ -373,7 +407,8 @@ def ssd_ab(parent: Path, torch, chip_smoke, build, results: dict):
         fn.restype = ctypes.c_int
         return fn, states_arg
 
-    entries = {"other": entry(other_lib, False), "this": entry(this_lib, True)}
+    entries = {"other": entry(other_lib, states_arg),
+               "this": entry(this_lib, True)}
     B, S, H, P, N = chip_smoke.SSD_SHAPE
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -439,6 +474,127 @@ def ssd_ab(parent: Path, torch, chip_smoke, build, results: dict):
     print(f"attention_ab sass ssd_fwd<64, 128> without chunk states: other "
           f"{len(one)} instructions, this {len(two)}, {len(diff)} lines "
           "differ (constant-bank offsets masked)", flush=True)
+
+
+
+def ssd_bwd_ab(parent: Path, torch, chip_smoke, build, results: dict):
+    """This tree's SSD backward against the ``ssd_scan_bwd.cu`` at
+    ``parent`` at every shape of ``chip_smoke.SSD_BWD_SHAPES``, then the two
+    builds' SASS opcode counts; into ``results``."""
+    from repro_torch.kernels import ssd_scan as ss
+    this_lib = build.build(("ssd_scan_bwd",))["ssd_scan_bwd"]
+    other_lib = build.BUILD_DIR / "probe" / "libssd_scan_bwd_other.so"
+    other_lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.flags("ssd_scan_bwd"), "-I",
+                    str(build.CSRC), "-o", str(other_lib), str(parent)],
+                   check=True)
+    libs = {"other": ctypes.CDLL(str(other_lib)),
+            "this": ctypes.CDLL(str(this_lib))}
+    for lib in libs.values():
+        lib.ssd_scan_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.POINTER(ctypes.c_int64)] * 2
+            + [ctypes.c_void_p])
+        lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    KP, KN = ss.KERNEL_P, ss.KERNEL_N
+    names = ("dx", "ddt", "da", "db", "dc", "dinit")
+    for key, (B, S, H, P, N), with_init, with_dfinal in (
+            chip_smoke.SSD_BWD_SHAPES):
+        x, dt, a, b, c, init, dy, dfinal = chip_smoke.ssd_bwd_inputs(
+            torch, gen, dev, B, S, H, P, N, with_init, with_dfinal)
+        _, _, states = ss.ssd_scan_cuda(x, dt, a, b, c, init, states=True)
+        x, b, c, dfinal = ss.pad_shape(x, b, c, dfinal)
+        if P < KP:
+            dy = torch.nn.functional.pad(dy, (0, KP - P))
+        nc = ss.n_chunks(S)
+        f32 = dict(dtype=torch.float32, device=dev)
+        outs = {side: {
+            "ds": torch.empty((B, nc, H, KP, KN), **f32),
+            "dx": torch.empty((B, S, H, KP), dtype=torch.bfloat16,
+                              device=dev),
+            "ddt": torch.empty((B, S, H), **f32),
+            "da": torch.empty((B, nc, H), **f32),
+            "db": torch.empty((B, S, KN), dtype=torch.bfloat16, device=dev),
+            "dc": torch.empty((B, S, KN), dtype=torch.bfloat16, device=dev),
+            "dinit": torch.empty((B, H, KP, KN), **f32)} for side in libs}
+        shape = (ctypes.c_int64 * 5)(B, S, H, KP, KN)
+        strides = (ctypes.c_int64 * 13)(
+            x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+            dt.stride(1), dt.stride(2), b.stride(0), b.stride(1),
+            c.stride(0), c.stride(1), dy.stride(0), dy.stride(1),
+            dy.stride(2))
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def raw(side):
+            """A call of one side's entry point, its arguments made once."""
+            fn = libs[side].ssd_scan_bwd_launch
+            ptrs = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                    dfinal.data_ptr() if dfinal is not None else None] + [t.data_ptr() for t in outs[side].values()]
+
+            def call():
+                rc = fn(*ptrs, shape, strides, stream)
+                if rc != 0:
+                    raise RuntimeError(f"the {side} SSD backward's launch "
+                                       f"failed: {rc}")
+            return call
+
+        def grads(side):
+            o = outs[side]
+            return (o["dx"][..., :P], o["ddt"], o["da"].sum(dim=(0, 1)),
+                    o["db"][..., :N], o["dc"][..., :N],
+                    o["dinit"][:, :, :P, :N])
+
+        calls = {side: raw(side) for side in libs}
+        twice, first = {}, {}
+        for side, call in calls.items():
+            call()
+            first[side] = [t.clone() for t in grads(side)]
+            call()
+            twice[side] = all(torch.equal(u, v)
+                              for u, v in zip(first[side], grads(side)))
+        cross = {n: chip_smoke.norm_err(u, v) for n, u, v in
+                 zip(names, first["this"], first["other"])
+                 if n != "dinit" or with_init}
+        del first
+        times = {"other": [], "this": []}
+        for turn in TURNS:
+            times[turn].append(chip_smoke.event_ms(torch, calls[turn], 10))
+        med = {side: sorted(ts)[len(ts) // 2] for side, ts in times.items()}
+        split = {side: chip_smoke.device_ms(
+            torch, calls[side], chip_smoke.SSD_BWD_KERNELS, 10)
+            for side in libs}
+        results[f"ssd_bwd_{key}"] = {
+            "median_ms": med, "launch_ms": split, "norm_errs_this_vs_other":
+            cross, "bit_equal_twice": twice, **times}
+        print(f"attention_ab ssd backward {key}: B {B} S {S} H {H} P {P} N "
+              f"{N} (run at {KP}, {KN}), initial state {with_init}, "
+              f"final-state cotangent {with_dfinal}: "
+              + "; ".join(f"{side} {['%.4f' % t for t in sorted(ts)]} ms "
+                          f"(median {med[side]:.4f}; launches "
+                          + ", ".join(f"{k} {v}"
+                                      for k, v in split[side].items())
+                          + f"), two calls bit-equal {twice[side]}"
+                          for side, ts in times.items())
+              + f"; this/other {med['this'] / med['other']:.3f}; this "
+              "against other, norm err "
+              + ", ".join(f"{n} {e:.3e}" for n, e in cross.items()),
+              flush=True)
+        del x, dt, a, b, c, init, dy, dfinal, states, outs
+        torch.cuda.empty_cache()
+
+    cuobjdump = shutil.which("cuobjdump", path=str(Path(build.nvcc()).parent))
+    if cuobjdump is not None:
+        for side, lib in (("other", other_lib), ("this", this_lib)):
+            counts = kernel_opcodes(cuobjdump, lib, r"ssd_bwd_",
+                                    chip_smoke.kernel_label, SSD_BWD_OPCODES)
+            results[f"ssd_bwd_sass_{side}"] = counts
+            for kernel, ops in counts.items():
+                print(f"attention_ab sass {side} {kernel}: "
+                      + ", ".join(f"{op} {n}" for op, n in ops.items()),
+                      flush=True)
 
 
 if __name__ == "__main__":

@@ -307,6 +307,8 @@ SSD_BWD_SHAPES = (
 # 50 tokens to divide S).  The bar is three times the largest; the plain
 # renderings of the faults (ssd_bwd_faults) read 0.36-8.8 against it.
 SSD_BWD_BAR = 4e-2
+# The backward's two launches, as the profiler names them.
+SSD_BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_chunk")
 
 # The training phases: h2o-danube-1.8b at full width and depth, the batch
 # and length of the serving phase's prompts, the JAX launcher's defaults
@@ -485,21 +487,33 @@ def event_ms(torch, fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(torch, fn, symbol: str, reps: int):
-    """Device time of one launch of the kernel ``symbol``: ``reps`` calls
-    under ``torch.profiler``, the kernel's device time over its launches,
-    or None if the profiler saw none.  Unlike ``event_ms`` it leaves out
-    the time the card waits for the host, which is the longer of the two at
-    small launches."""
+def device_ms(torch, fn, symbols, reps: int) -> dict:
+    """Device time of one launch of each kernel in ``symbols``: ``reps``
+    calls of ``fn`` under ``torch.profiler``, each kernel's device time
+    over the launches the profiler saw of it.  The profiler can miss the
+    first millisecond or so of a window (on an H100 it saw 3 of 5 calls of
+    0.5 ms, and none of 5 of 0.2 ms), so a kernel it did not see is timed
+    again with four times the calls, twice at most; None if it never saw
+    one.  Unlike ``event_ms`` it leaves out the time the card waits for
+    the host, which is the longer of the two at small launches."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    out = dict.fromkeys(symbols)
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    ms, n = device_split(prof.key_averages(), symbol)[0]["kernel"]
-    return ms / n if n else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        for symbol in symbols:
+            ms, n = device_split(events, symbol)[0]["kernel"]
+            if out[symbol] is None and n:
+                out[symbol] = ms / n
+        if all(v is not None for v in out.values()):
+            break
+        reps *= 4
+    return out
 
 
 def norm_err(got, want) -> float:
@@ -601,6 +615,48 @@ def ssd_bwd_design_bytes(B, S, H, q, P, N) -> int:
     once, and the f32 state cotangent of each chunk, written by
     ``ssd_bwd_state`` and read back by ``ssd_bwd_chunk``."""
     return 3 * B * -(-S // q) * H * P * N * 4
+
+
+def ssd_bwd_kernel_bytes(B, S, H, q, P, N, dfinal) -> dict:
+    """Bytes each launch of the SSD backward moves at the (P, N) it runs
+    at, each tensor it reads or writes once (b and c once per batch row,
+    though every head reads them): ``ssd_bwd_state`` reads dy, c, dt, a
+    and dfinal (where given) and writes the state cotangent G of every
+    chunk and dinit; ``ssd_bwd_chunk`` reads x, dy, dt, a, b, c, the
+    forward's f32 chunk states and G, and writes dx, ddt, db, dc and da's
+    per-chunk partial sums."""
+    nc = -(-S // q)
+    tokens, heads = B * S * H, B * nc * H
+    states = heads * P * N * 4
+    return {"ssd_bwd_state": (tokens * P * 2 + B * S * N * 2 + tokens * 4
+                              + H * 4 + B * H * P * N * 4 * (1 + bool(dfinal))
+                              + states),
+            "ssd_bwd_chunk": (tokens * P * 2 * 3 + tokens * 4 * 2 + H * 4
+                              + B * S * N * 2 * 4 + 2 * states + heads * 4)}
+
+
+def ssd_bwd_inputs(torch, gen, dev, B, S, H, P, N, with_init, with_dfinal):
+    """The SSD backward's inputs at one shape, from ``gen``: x, b and c as
+    slices of one bf16 activation (the model's strides), dt and a from
+    Mamba2's ranges, dy bf16, the initial state and the final state's
+    cotangent f32 where asked for (else None)."""
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt0 = torch.logspace(math.log10(SSD_DT_RANGE[0]),
+                         math.log10(SSD_DT_RANGE[1]), H, device=dev)
+    dt = torch.nn.functional.softplus(
+        dt0 + torch.log(-torch.expm1(-dt0))
+        + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
+    a = -torch.linspace(*SSD_A_RANGE, H, device=dev)
+    init = (torch.randn((B, H, P, N), generator=gen, device=dev)
+            if with_init else None)
+    dy = torch.randn((B, S, H, P), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    dfinal = (torch.randn((B, H, P, N), generator=gen, device=dev)
+              if with_dfinal else None)
+    return x, dt, a, b, c, init, dy, dfinal
 
 
 def ssd_bwd_faults(ss, x, dt, a, b, c, init, dy, dfinal, want) -> dict:
@@ -798,7 +854,8 @@ def main(argv=None) -> int:
                     or row["spill_loads"])]
     checks.expect(not spilled, f"build: stack or spills in {spilled}")
     # The SSD kernels (the forward with and without its chunk states, the
-    # backward's two) run with no stack and no spills.
+    # backward's state cotangent with one and two heads a block, and its
+    # chunk kernel) run with no stack and no spills.
     ssd = [row for row in ptxas_table(log.getvalue())
            if row["kernel"].startswith("ssd_")]
     for row in ssd:
@@ -807,8 +864,9 @@ def main(argv=None) -> int:
               f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
               "stores / loads", flush=True)
     checks.expect(sorted(f"{r['kernel']}<{r['args']}>" for r in ssd) == [
-        "ssd_bwd_chunk<>", "ssd_bwd_state<>", "ssd_fwd<64, 128, no states>",
-        "ssd_fwd<64, 128, states>"], f"build: ptxas lines of the SSD "
+        "ssd_bwd_chunk<>", "ssd_bwd_state<1>", "ssd_bwd_state<2>",
+        "ssd_fwd<64, 128, no states>", "ssd_fwd<64, 128, states>"],
+                  f"build: ptxas lines of the SSD "
                   f"kernels {[(r['kernel'], r['args']) for r in ssd]}")
     spilled = [f"{row['kernel']}<{row['args']}>" for row in ssd
                if row["stack"] or row["spill_stores"] or row["spill_loads"]]
@@ -1011,7 +1069,7 @@ def main(argv=None) -> int:
         xs = x[:rows].contiguous()
         k_ms = event_ms(torch, lambda: dvfs_opt.dvfs_solve_cuda(xs), 20)
         d_ms = device_ms(torch, lambda: dvfs_opt.dvfs_solve_cuda(xs),
-                         "dvfs_opt_kernel", 20)
+                         ("dvfs_opt_kernel",), 20)["dvfs_opt_kernel"]
         p_ms = event_ms(torch, lambda: dvfs_opt.dvfs_solve_plain(xs), 5)
         b_ms, b_by = bound_ms(rows, g0, g1)
         timing[rows] = (k_ms, p_ms, b_ms, b_by, d_ms)
@@ -1937,22 +1995,8 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
     names = ("dx", "ddt", "da", "db", "dc", "dinit")
     out = {}
     for key, (B, S, H, P, N), with_init, with_dfinal in SSD_BWD_SHAPES:
-        xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
-                          device=dev).to(torch.bfloat16)
-        x = xbc[..., :H * P].reshape(B, S, H, P)   # strided, as the model's
-        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
-        dt0 = torch.logspace(math.log10(SSD_DT_RANGE[0]),
-                             math.log10(SSD_DT_RANGE[1]), H, device=dev)
-        dt = torch.nn.functional.softplus(
-            dt0 + torch.log(-torch.expm1(-dt0))
-            + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
-        a = -torch.linspace(*SSD_A_RANGE, H, device=dev)
-        init = (torch.randn((B, H, P, N), generator=gen, device=dev)
-                if with_init else None)
-        dy = torch.randn((B, S, H, P), generator=gen,
-                         device=dev).to(torch.bfloat16)
-        dfinal = (torch.randn((B, H, P, N), generator=gen, device=dev)
-                  if with_dfinal else None)
+        x, dt, a, b, c, init, dy, dfinal = ssd_bwd_inputs(
+            torch, gen, dev, B, S, H, P, N, with_init, with_dfinal)
         y, final, states = ss.ssd_scan_cuda(x, dt, a, b, c, init,
                                             states=True)
         y0, final0 = ss.ssd_scan_cuda(x, dt, a, b, c, init)
@@ -2002,6 +2046,10 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
                                    states.bfloat16().float(), dy, dfinal)
         errs_bf16 = {n: norm_err(g, w) for n, g, w in zip(names, low, want)
                      if w is not None}
+        low = ss.ssd_scan_bwd_cuda(x, dt, a, b, c, states, dy, dfinal,
+                                   round_g=True)
+        errs_bf16_g = {n: norm_err(g, w) for n, g, w in zip(names, low, want)
+                       if w is not None}
         del low, got
         faults = ssd_bwd_faults(ss, xp, dtp, a, bp, cp, init, dyp, dfinal,
                                 want_p)
@@ -2016,8 +2064,23 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
                                    with_dfinal)
         design = ssd_bwd_design_bytes(B, S, H, ss.KERNEL_CHUNK, ss.KERNEL_P,
                                       ss.KERNEL_N)
+        # Each launch on its own: device time, its own traffic's floor at
+        # the memory rate, the rate it reached.
+        launch_ms = device_ms(torch, kernel, SSD_BWD_KERNELS, 10)
+        launch_bytes = ssd_bwd_kernel_bytes(B, S, H, ss.KERNEL_CHUNK,
+                                            ss.KERNEL_P, ss.KERNEL_N,
+                                            with_dfinal)
+        launches = {k: {"ms": launch_ms[k], "bytes": launch_bytes[k],
+                        "floor_ms": launch_bytes[k] / PEAK_BYTES * 1e3,
+                        "tb_per_s": (launch_bytes[k] / launch_ms[k] / 1e9
+                                     if launch_ms[k] else None)}
+                    for k in SSD_BWD_KERNELS}
+        checks.expect(all(v["ms"] for v in launches.values()),
+                      f"ssd backward {key}: the profiler saw each launch "
+                      f"{launch_ms}")
         row = {"max_abs_err": abs_err, "norm_errs": errs,
                "states_norm_err": st_err, "norm_errs_bf16_states": errs_bf16,
+               "norm_errs_bf16_g": errs_bf16_g, "launch_split": launches,
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None, "design_bytes": design,
                "fault_norm_errs": faults, "bit_equal_twice": twice,
@@ -2042,6 +2105,8 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
               + f", max abs err {abs_err:.3e}, two calls bit-equal {twice}; "
               "from bf16-rounded chunk states "
               + ", ".join(f"{n} {e:.3e}" for n, e in errs_bf16.items())
+              + "; from bf16-rounded state cotangents (a probe) "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs_bf16_g.items())
               + f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_ms:.1%} of the "
               f"bound; the design's chunk states and state cotangents "
@@ -2050,7 +2115,12 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
               "against the right answer: "
               + ", ".join(f"{n} {e:.3e}" for n, e in faults.items()),
               flush=True)
-        del xbc, x, b, c, dt, a, init, dy, dfinal, states
+        for k, v in launches.items():
+            print(f"phase ssd backward {key} launch {k}: device "
+                  f"{v['ms']} ms, its own traffic {v['bytes']} bytes "
+                  f"(floor {v['floor_ms']:.4f} ms at the memory rate), "
+                  f"{v['tb_per_s']} TB/s", flush=True)
+        del x, b, c, dt, a, init, dy, dfinal, states
         torch.cuda.empty_cache()
     return out
 
@@ -2335,7 +2405,8 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     split, top = device_split(events, "ssd_")   # the SSD kernels together
     fwd_ms, n_fwd = device_split(events, "ssd_fwd")[0]["kernel"]
     bwd_ms, n_bwd = device_split(events, "ssd_bwd")[0]["kernel"]
-    state_ms = device_split(events, "ssd_bwd_state")[0]["kernel"][0]
+    state_ms, chunk_ms = (device_split(events, k)[0]["kernel"][0]
+                          for k in SSD_BWD_KERNELS)
     mm_ms = split["matmuls"][0]
     step_med = statistics.median(step_s[1:])   # the first step warms up
     result = {
@@ -2349,7 +2420,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
         "device_busy_ms": busy, "idle_share": 1.0 - busy / 1e3 / p_wall,
         "ssd_fwd_ms": fwd_ms, "ssd_fwd_share": fwd_ms / busy,
         "ssd_bwd_ms": bwd_ms, "ssd_bwd_share": bwd_ms / busy,
-        "ssd_bwd_state_ms": state_ms,
+        "ssd_bwd_state_ms": state_ms, "ssd_bwd_chunk_ms": chunk_ms,
         "matmul_ms": mm_ms, "matmul_share": mm_ms / busy,
         "rest_ms": split["rest"][0], "rest_share": split["rest"][0] / busy}
     print(f"phase train {TRAIN_SSM_ARCH}: {n_params} parameters, {L} "
@@ -2366,7 +2437,8 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
           f"{p_wall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle share "
           f"{1.0 - busy / 1e3 / p_wall:.4f}; ssd_scan_bwd {bwd_ms:.3f} ms "
           f"x{n_bwd} ({bwd_ms / busy:.1%}; ssd_bwd_state {state_ms:.3f} ms "
-          f"of it), ssd_scan {fwd_ms:.3f} ms "
+          f"and ssd_bwd_chunk {chunk_ms:.3f} ms of it), ssd_scan "
+          f"{fwd_ms:.3f} ms "
           f"x{n_fwd} ({fwd_ms / busy:.1%}), matmuls {mm_ms:.3f} ms "
           f"({mm_ms / busy:.1%}), the rest {split['rest'][0]:.3f} ms "
           f"({split['rest'][0] / busy:.1%}); top of the rest: {top}",

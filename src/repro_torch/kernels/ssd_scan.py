@@ -344,6 +344,9 @@ def _bwd_library():
             [ctypes.c_void_p] * 15 + [ctypes.POINTER(ctypes.c_int64)] * 2
             + [ctypes.c_void_p])
         lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+        lib.ssd_scan_bwd_launch_parts.argtypes = (
+            lib.ssd_scan_bwd_launch.argtypes + [ctypes.c_int])
+        lib.ssd_scan_bwd_launch_parts.restype = ctypes.c_int
         lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
         lib._ssd_scan_bwd_typed = True
@@ -369,6 +372,17 @@ def _check(fn: str, name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{fn}: {name} needs a unit last stride, other "
                          "strides multiples of 8 elements and a 16-byte "
                          f"aligned base; got strides {t.stride()}")
+
+
+def _check_aligned(fn: str, name: str, t: torch.Tensor, align: int = 16):
+    """Raise unless ``t``'s first element sits at a multiple of ``align``
+    bytes: the backward moves the chunk states by bulk copies of 512-byte
+    rows and reads dfinal in 8-byte pairs, and neither takes a view that
+    starts elsewhere (nothing is copied to fix it)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{fn}: {name} must start at a {align}-byte "
+                         f"aligned address, got {t.data_ptr():#x} (a view "
+                         "into another tensor?)")
 
 
 def _check_operands(fn: str, x, dt, a, b, c, init_state):
@@ -463,7 +477,8 @@ ssd_scan_cuda.launches = 0
 
 def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor, c: torch.Tensor, states: torch.Tensor,
-                      dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None):
+                      dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None,
+                      *, round_g: bool = False):
     """Launch ``csrc/ssd_scan_bwd.cu`` (its two kernels: the state
     cotangent chunk by chunk from the last, then every chunk's gradients):
     x, dt, a, b, c as :func:`ssd_scan_cuda` takes them, ``states`` the
@@ -475,8 +490,14 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     forward does (dy and dfinal too) and slices the gradients back.  ``da``
     is a ``torch.sum`` over batch and chunks of the kernel's per-chunk
     partial sums, a fixed order.  Counts one launch per call in
-    ``ssd_scan_bwd_cuda.launches``.  Raises on any other input and if a
-    launch is refused."""
+    ``ssd_scan_bwd_cuda.launches``.  ``states`` (and ``dfinal``) must
+    start 16-byte aligned (:func:`_check_aligned`).  Raises on any other
+    input and if a launch is refused.
+
+    ``round_g`` is a probe that the training path never sets: the state
+    cotangents the first kernel hands the second are rounded to bf16 in
+    between (the two kernels launched apart), which is what storing them in
+    bf16 would cost in accuracy."""
     fn = "ssd_scan_bwd_cuda"
     B, S, H, P, N = _check_operands(fn, x, dt, a, b, c, None)
     dev = x.device
@@ -491,6 +512,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             or not states.is_contiguous()):
         raise ValueError(f"{fn}: states must be the forward's contiguous "
                          f"float32 {want} chunk states on {dev}")
+    _check_aligned(fn, "states", states)
     if dfinal is not None:
         _check(fn, "dfinal", dfinal, dev, torch.float32, 4, False)
         if dfinal.shape != (B, H, P, N):
@@ -501,6 +523,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         dy = torch.nn.functional.pad(dy, (0, KERNEL_P - P))
     if dfinal is not None:
         dfinal = dfinal.contiguous()
+        _check_aligned(fn, "dfinal", dfinal)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=dev)
     ddt = torch.empty((B, S, H), **f32)
@@ -522,15 +545,20 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             dt.stride(0), dt.stride(1), dt.stride(2),
             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             dy.stride(0), dy.stride(1), dy.stride(2))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.ssd_scan_bwd_launch(
-                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                 c.data_ptr(), states.data_ptr(), dy.data_ptr(),
                 dfinal.data_ptr() if dfinal is not None else None,
                 ds.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                 da_part.data_ptr(), db.data_ptr(), dc.data_ptr(),
-                dinit.data_ptr(), shape, strides, stream)
+                dinit.data_ptr(), shape, strides)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if round_g:
+                rc = lib.ssd_scan_bwd_launch_parts(*args, stream, 1)
+                ds.copy_(ds.bfloat16())
+                rc = rc or lib.ssd_scan_bwd_launch_parts(*args, stream, 2)
+            else:
+                rc = lib.ssd_scan_bwd_launch(*args, stream)
         if rc != 0:
             raise RuntimeError("ssd_scan backward kernel launch failed: "
                                + lib.ssd_scan_bwd_error_string(rc).decode())

@@ -363,6 +363,14 @@ ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_scan_
 ptxas info    : Function properties for _ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_18d893fe7ssd_fwdILi64ELi128ELb1EEEvNS_6ParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 197 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_72644c5513ssd_bwd_stateILi1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_72644c5513ssd_bwd_stateILi1EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_72644c5513ssd_bwd_stateILi2EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_72644c5513ssd_bwd_stateILi2EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 176 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_72644c5513ssd_bwd_chunkENS_6ParamsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_72644c5513ssd_bwd_chunkENS_6ParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -373,9 +381,17 @@ ptxas info    : Used 236 registers, used 1 barriers
 def test_ptxas_table_reads_the_ssd_kernels():
     """Phase "build" reads the SSD kernels' ptxas lines as it reads the
     attention kernels': the forward with its states flag, the backward's
-    kernels by name."""
-    assert _chip_smoke().ptxas_table(PTXAS_SSD) == [
+    two kernels by name (as ``chip_smoke.SSD_BWD_KERNELS`` names them),
+    the state cotangent's with its heads a block."""
+    cs = _chip_smoke()
+    assert {row["kernel"] for row in cs.ptxas_table(PTXAS_SSD)
+            if row["kernel"].startswith("ssd_bwd")} == set(cs.SSD_BWD_KERNELS)
+    assert cs.ptxas_table(PTXAS_SSD) == [
         {"kernel": "ssd_fwd", "args": "64, 128, states", "registers": 197,
+         "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "ssd_bwd_state", "args": "1", "registers": 128,
+         "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "ssd_bwd_state", "args": "2", "registers": 176,
          "stack": 0, "spill_stores": 0, "spill_loads": 0},
         {"kernel": "ssd_bwd_chunk", "args": "", "registers": 236,
          "stack": 0, "spill_stores": 0, "spill_loads": 0}]
@@ -398,3 +414,58 @@ def test_ssd_bwd_bound_counts_the_operands_only(init, dfinal):
     assert ms == pytest.approx(operands / cs.PEAK_BYTES * 1e3, rel=1e-12)
     design = cs.ssd_bwd_design_bytes(B, S, H, q, P, N)
     assert design == 3 * 4 * B * (S // q) * H * P * N
+
+
+@pytest.mark.parametrize("shape", ["train", "ragged"])
+def test_ssd_bwd_kernel_bytes_count_each_launch(shape):
+    """Each launch's own traffic, as phase "ssd backward" divides it by the
+    launch's device time, counted by hand at mamba2-370m's training shape
+    (0.35 GB and 0.76 GB) and at the ragged S (1000 tokens in 16 chunks,
+    with a final-state cotangent): ``ssd_bwd_state`` reads dy, c, dt, a
+    (and dfinal) and writes G of every chunk and dinit; ``ssd_bwd_chunk``
+    reads x, dy, dt, a, b, c, the chunk states and G and writes dx, ddt,
+    db, dc and da's partial sums."""
+    cs = _chip_smoke()
+    B, S, H, dfinal = {"train": (8, 2048, 32, False),
+                       "ragged": (2, 1000, 32, True)}[shape]
+    P, N, q = ss.KERNEL_P, ss.KERNEL_N, ss.KERNEL_CHUNK
+    nc = -(-S // q)
+    x = dy = dx = B * S * H * P * 2
+    dt = ddt = B * S * H * 4
+    b = c = db = dc = B * S * N * 2
+    state = B * H * P * N * 4               # dinit, dfinal
+    g = states = B * nc * H * P * N * 4      # every chunk's G, chunk states
+    want = {"ssd_bwd_state": dy + c + dt + H * 4 + g + state * (1 + dfinal),
+            "ssd_bwd_chunk": (x + dy + dt + H * 4 + b + c + states + g + dx
+                              + ddt + db + dc + B * nc * H * 4)}
+    got = cs.ssd_bwd_kernel_bytes(B, S, H, q, P, N, dfinal)
+    assert got == want
+    assert set(got) == set(cs.SSD_BWD_KERNELS)
+    if shape == "train":
+        assert round(got["ssd_bwd_state"] / 1e6) == 350
+        assert round(got["ssd_bwd_chunk"] / 1e6) == 759
+
+
+def test_bulk_copied_operands_must_be_aligned():
+    """The backward moves the chunk states by bulk copies and reads dfinal
+    in pairs, so the wrapper raises on a view that starts off a 16-byte
+    boundary instead of copying it; the model's own operands, x, b and c
+    as slices of one conv output (``chip_smoke.ssd_bwd_inputs``), start
+    on one."""
+    fn = "ssd_scan_bwd_cuda"
+    base = torch.zeros(4 * 2 * 64 * 128 + 4)
+    ss._check_aligned(fn, "states", base)
+    with pytest.raises(ValueError, match="states must start at a 16-byte"):
+        ss._check_aligned(fn, "states", base[1:])
+    with pytest.raises(ValueError, match="dfinal"):
+        ss._check_aligned(fn, "dfinal", base[2:-2].reshape(2, 4, 64, 128))
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    x, dt, a, b, c, init, dy, dfinal = cs.ssd_bwd_inputs(
+        torch, gen, torch.device("cpu"), 2, 64, 4, 64, 128, True, True)
+    assert x.stride()[:2] == (64 * (4 * 64 + 2 * 128), 4 * 64 + 2 * 128)
+    for name, t in (("x", x), ("b", b), ("c", c), ("dy", dy),
+                    ("dfinal", dfinal), ("init", init)):
+        ss._check_aligned(fn, name, t)
+    assert (b.data_ptr() - x.data_ptr(), c.data_ptr() - x.data_ptr()) == (
+        4 * 64 * 2, (4 * 64 + 128) * 2)
