@@ -120,7 +120,24 @@ without the final result line):
    the SSD kernels' shares;
 15. train families — one train step of the ``smoke`` preset of each other
    family on the card (moe, hybrid, encdec, vlm, ssm: finite loss and
-   gradient norm, the family's backward kernel launched).
+   gradient norm, the family's backward kernel launched);
+16. mesh — the multi-device layer on the one card: the online day's
+   largest launch matrix (99,328 rows) and a 300k-row fuzz matrix through
+   ``dvfs_solve_matrix`` split over ``[cuda:0, cuda:0]`` (``ops.solve_devices``
+   listing the card twice; padding, two
+   chunks of whole blocks, the gather), bit-equal to one launch, and the
+   default device list making one launch on a one-card machine; then a
+   one-rank NCCL ``(1, 1)`` ``DeviceMesh`` (``launch/mesh.py``):
+   h2o-danube-1.8b served at full width and depth under ``serve_rules``
+   (``DTensor`` weights gathered at their use, the decode cache through
+   the sequence-sharded flash-decode's collectives) with the serve
+   phase's requests, its tokens equal to the same server's without a mesh;
+   the danube training step (B 8, S 2048) under ``fsdp_rules``, its loss
+   and updated parameters equal to the step without a mesh, and the
+   launch counts of that path read around it; the state checkpointed and
+   restored with ``shardings=`` onto the mesh, every leaf equal; the
+   serve and step times with and without the mesh, beside the card's name
+   and power limit.
 
 Each kernel check compares the normalised error, max |got - want| /
 (|want| + rms(want)), with its bar, and shows that the bar would catch the
@@ -1095,6 +1112,7 @@ def main(argv=None) -> int:
     train = train_danube_phase(checks, np, torch, dev, args.seed)
     train_ssm = train_mamba2_phase(checks, np, torch, dev, args.seed)
     train_families = train_families_phase(checks, torch, dev, args.seed)
+    mesh = mesh_phase(checks, np, torch, dev, args.seed)
 
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
@@ -1118,7 +1136,8 @@ def main(argv=None) -> int:
         "device_ms_median_online": d_med,
         "plain_ms_median_online": p_med, "bound_ms_median_online": b_med,
         "launch_rows_online": rows_online, "day_device_ms": day_dvfs_ms,
-        "launch_rows_offline": rows_offline, **jobs}, {
+        "launch_rows_offline": rows_offline, **jobs,
+        "mesh_split": mesh["split"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
@@ -1127,14 +1146,17 @@ def main(argv=None) -> int:
         **{key: attn[key] for key, _ in ATTN_HEAD_DIMS}, **attn_family,
         "serve": {arch: serve[arch] for arch, kernel, _ in SERVE_ARCHS
                   if kernel == "flash_attention"},
-        "launches_train": train["launches"]["flash_attention"]}, {
+        "launches_train": train["launches"]["flash_attention"],
+        "launches_mesh": mesh["launches"]["flash_attention"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:96 (jax.grad of "
                     "blockwise_attention; no Pallas backward)",
         "launches": train["launches"]["flash_attention_bwd"],
         **attn_bwd["danube"], "shapes": attn_bwd, "train": train,
-        "train_families": train_families}, {
+        "train_families": train_families,
+        "launches_mesh": mesh["launches"]["flash_attention_bwd"],
+        "mesh": {k: v for k, v in mesh.items() if k != "split"}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
@@ -2487,6 +2509,254 @@ def train_families_phase(checks, torch, dev, seed: int) -> dict:
         del state, model
     torch.cuda.empty_cache()
     return out
+
+
+def mesh_phase(checks, np, torch, dev, seed: int) -> dict:
+    """The multi-device layer on one card: ``dvfs_solve_matrix`` split over
+    the card listed twice against one launch; then a one-rank NCCL (1, 1)
+    mesh, danube served under ``serve_rules`` and trained one step under
+    ``fsdp_rules``, each against the same run without a mesh (tokens; loss
+    and updated parameters), the launch counts of the mesh path, a
+    checkpoint restored onto the mesh, and the times with and without
+    it."""
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import partition
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.core import dvfs, online, solver_cache, tasks
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.train import WARMUP, preset_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import (init_state, make_state_axes,
+                                           make_train_step)
+
+    # The split: the online day's largest launch matrix (recorded from a
+    # rerun of phase 3's day) and a 300k-row fuzz matrix, over the card
+    # listed twice, against one launch and against the default device list.
+    kept = []
+    inner = ops.dvfs_solve_kernel
+
+    def keep_largest(t, **kw):
+        if not kept or t.shape[0] > kept[0].shape[0]:
+            kept[:] = [t.detach().cpu().numpy()]
+        return inner(t, **kw)
+
+    solver_cache.GLOBAL_CACHE.clear()
+    ops.dvfs_solve_kernel = keep_largest
+    try:
+        online.schedule_online(tasks.generate_trace(100_000, "uniform",
+                                                    seed=0),
+                               l=4, theta=0.9, algorithm="edl",
+                               classes=CLASSES, use_kernel=True,
+                               pipeline=True, device=dev)
+    finally:
+        ops.dvfs_solve_kernel = inner
+    twice = [torch.device(dev.type, 0)] * 2
+    split = {}
+    for name, mat in (("day", kept[0]),
+                      ("fuzz", fuzz_matrix(np, dvfs, tasks, seed,
+                                           MAIN_ROWS))):
+        m = mat.shape[0]
+        runs = {}
+        visible = ops.solve_devices
+        for label, kw, listed in (("split", {}, lambda d: twice),
+                                  ("one", {"shard": False}, visible),
+                                  ("default", {}, visible)):
+            ops.solve_devices = listed
+            try:
+                with launch_rows(ops) as rows:
+                    t = time.perf_counter()
+                    got = ops.dvfs_solve_matrix(mat, device=dev, **kw)
+                    runs[label] = (got, rows, time.perf_counter() - t)
+            finally:
+                ops.solve_devices = visible
+        nd, chunk = ops.split_plan(m, 2)
+        same = bool(np.array_equal(runs["split"][0], runs["one"][0]))
+        want_default = [m] if torch.cuda.device_count() == 1 else None
+        checks.expect(same and runs["split"][1] == [chunk] * nd
+                      and runs["one"][1] == [m]
+                      and want_default in (None, runs["default"][1])
+                      and bool(np.array_equal(runs["default"][0],
+                                              runs["one"][0])),
+                      f"mesh: split of the {name} matrix ({m} rows): "
+                      f"bit-equal {same}, launches {runs['split'][1]} (want "
+                      f"{[chunk] * nd}), one launch {runs['one'][1]}, "
+                      f"default list {runs['default'][1]}")
+        split[name] = {"rows": m, "launch_rows": runs["split"][1],
+                       "bit_equal": same,
+                       "default_launch_rows": runs["default"][1],
+                       "split_s": runs["split"][2], "one_s": runs["one"][2]}
+        print(f"phase mesh split {name}: {m} rows over {twice}: launches of "
+              f"{runs['split'][1]} rows (pads {nd * chunk - m}), bit-equal "
+              f"to one launch {same}; the default device list launched "
+              f"{runs['default'][1]} on {torch.cuda.device_count()} card(s); "
+              f"host wall {runs['split'][2]:.4f} s split, "
+              f"{runs['one'][2]:.4f} s one launch", flush=True)
+    del kept
+
+    counters = kernel_counters()
+    cfg = preset_config(TRAIN_ARCH, "full")
+    L = cfg.n_layers
+    model = Model(cfg, device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    max_seq = SERVE_PROMPT + SERVE_GEN + 8
+    opt = AdamW(learning_rate=cosine_schedule(TRAIN_LR, WARMUP, TRAIN_STEPS))
+    data = SyntheticLMData.for_config(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=seed,
+                                      mode="succ")
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch(i).items()} for i in range(3)]
+
+    def serve(place):
+        params = place(model.init(seed))
+        srv = Server(model, params, SERVE_REQUESTS, max_seq=max_seq,
+                     device=dev)
+        del params
+        srv.run([Request(rid=i, prompt=prompts[i], max_new=2)
+                 for i in range(SERVE_REQUESTS)])         # warm-up
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=SERVE_GEN)
+                for i in range(SERVE_REQUESTS)]
+        stats = srv.run(reqs)
+        del srv
+        return [r.out for r in reqs], stats
+
+    def train(param_axes=None):
+        """Three steps from the seed's state: the first step's loss and
+        parameters, each step's time; then AdamW's update alone (zero
+        gradients, the same operations), the faster of two."""
+        state = init_state(model, opt, seed)
+        step = make_train_step(model, opt, param_axes=param_axes)
+        losses, step_s, after = [], [], None
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            if after is None:
+                after = [(x.to_local() if partition.is_dtensor(x) else x)
+                         .clone() for x in pytree.tree_leaves(state.params)]
+        zeros = pytree.tree_map(torch.zeros_like, state.params)
+        update_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            opt.update(zeros, state.opt, state.params)
+            torch.cuda.synchronize()
+            update_s.append(time.perf_counter() - t)
+        return state, losses, step_s, after, min(update_s)
+
+    toks, plain = serve(lambda p: p)
+    state, plain_losses, plain_step_s, plain_after, plain_update = train()
+    del state
+    torch.cuda.empty_cache()
+
+    with process_group(dev):
+        mesh = make_host_mesh(1, 1, device=dev)
+        serve_rules = partition.serve_rules(mesh, SERVE_REQUESTS)
+        fsdp_rules = partition.fsdp_rules(mesh, TRAIN_BATCH)
+        for fn in counters.values():
+            fn.launches = 0
+        with partition.use_rules(serve_rules):
+            mesh_toks, meshed = serve(lambda p: partition.place(
+                p, partition.param_shardings(serve_rules,
+                                             model.param_axes())))
+        serve_launches = {name: fn.launches for name, fn in counters.items()}
+        with partition.use_rules(fsdp_rules):
+            state, mesh_losses, mesh_step_s, mesh_after, mesh_update = train(
+                model.param_axes())
+        launches = {name: fn.launches for name, fn in counters.items()}
+        checks.expect(mesh_toks == toks,
+                      f"mesh: danube's tokens under serve_rules on a (1, 1) "
+                      f"mesh differ from the same server's without a mesh at "
+                      f"{sum(a != b for x, y in zip(mesh_toks, toks) for a, b in zip(x, y))} "
+                      "places")
+        diff = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(mesh_after, plain_after)]
+        equal = sum(torch.equal(a, b) for a, b in zip(mesh_after,
+                                                      plain_after))
+        del mesh_after, plain_after
+        checks.expect(mesh_losses[0] == plain_losses[0]
+                      and equal == len(diff),
+                      f"mesh: first step under fsdp_rules, loss "
+                      f"{mesh_losses[0]} against {plain_losses[0]} without a "
+                      f"mesh, {equal} of {len(diff)} parameters equal (max "
+                      f"abs diff {max(diff)})")
+        # Two Server.run calls (the warm-up and the timed one), a prefill
+        # each; the forward twice a layer a step with remat, the backward
+        # once.
+        steps = len(batches)
+        want = {"dvfs_opt": 0, "flash_attention": 2 * L + 2 * L * steps,
+                "flash_attention_bwd": L * steps, "ssd_scan": 0,
+                "ssd_scan_bwd": 0}
+        checks.expect(launches == want,
+                      f"mesh: launches {launches} on the mesh path (serve "
+                      f"{serve_launches}), want {want}")
+
+        # The state saved, then restored with the mesh's shardings.
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckdir:
+            store = CheckpointStore(ckdir, keep=1)
+            t = time.perf_counter()
+            store.save(steps, state, blocking=True)
+            save_s = time.perf_counter() - t
+            sh = partition.param_shardings(
+                fsdp_rules, make_state_axes(model.param_axes()))
+            t = time.perf_counter()
+            restored, at = store.restore(state, shardings=sh)
+            restore_s = time.perf_counter() - t
+        same = [torch.equal(a.to_local(), b.to_local())
+                and a.placements == b.placements
+                for a, b in zip(pytree.tree_leaves(restored),
+                                pytree.tree_leaves(state))]
+        checks.expect(at == steps and all(same),
+                      f"mesh: checkpoint restored onto the mesh at step {at}, "
+                      f"{sum(same)} of {len(same)} leaves equal with their "
+                      "placements")
+        del state, restored
+    torch.cuda.empty_cache()
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    p_step, m_step = (statistics.median(x[1:]) for x in (plain_step_s,
+                                                        mesh_step_s))
+    print(f"phase mesh: h2o-danube-1.8b on a one-rank NCCL (1, 1) mesh; "
+          f"serve_rules: {SERVE_REQUESTS} requests x {SERVE_PROMPT} + "
+          f"{SERVE_GEN} tokens equal to the server's without a mesh "
+          f"{mesh_toks == toks}; fsdp_rules: step losses {mesh_losses} "
+          f"(without a mesh {plain_losses}), {equal} of {len(diff)} "
+          f"parameters bit-equal after the first step; launches {launches} "
+          f"(serve {serve_launches}); checkpoint of {len(same)} leaves saved "
+          f"in {save_s:.2f} s, restored onto the mesh in {restore_s:.2f} s, "
+          f"equal {all(same)}", flush=True)
+    print(f"phase mesh times ({smi}): serve prefill {plain['prefill_s']:.4f} "
+          f"s without the mesh, {meshed['prefill_s']:.4f} s with it; decode "
+          f"{plain['decode_s']:.4f} s, {meshed['decode_s']:.4f} s "
+          f"({plain['tok_per_s']:.1f}, {meshed['tok_per_s']:.1f} tokens/s); "
+          f"train step {p_step:.4f} s, {m_step:.4f} s (median of steps 2-3; "
+          f"all {[round(x, 4) for x in plain_step_s]}, "
+          f"{[round(x, 4) for x in mesh_step_s]}), of which AdamW's update "
+          f"{plain_update:.4f} s, {mesh_update:.4f} s", flush=True)
+    return {"split": split, "launches": launches,
+            "serve_launches": serve_launches,
+            "tokens_equal": mesh_toks == toks,
+            "losses": mesh_losses, "plain_losses": plain_losses,
+            "params_equal": equal, "params": len(diff),
+            "checkpoint_equal": all(same), "save_s": save_s,
+            "restore_s": restore_s, "card": smi,
+            "serve_s": {"prefill": plain["prefill_s"],
+                        "decode": plain["decode_s"]},
+            "serve_mesh_s": {"prefill": meshed["prefill_s"],
+                             "decode": meshed["decode_s"]},
+            "step_s": p_step, "step_mesh_s": m_step,
+            "adamw_s": plain_update, "adamw_mesh_s": mesh_update}
 
 
 # Kernel names as the profiler shows them, per family kernel.

@@ -14,4 +14,18 @@
 
 Importing the package imports none of them, so the solver modules can
 import these lazily without a cycle.
+
+Kernels take plain local tensors: a ``DTensor`` (a sharded weight of
+``repro_torch.partition``) that reaches a kernel wrapper raises instead of
+running the plain version's torch ops on it; gather it first
+(``partition.wcast``).
 """
+
+from repro_torch.partition import is_dtensor
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if any of ``tensors`` is a ``DTensor``."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, got a DTensor: gather "
+                        "it first (repro_torch.partition.wcast)")

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dvfs import G1_A, G1_B, G1_C, WIDE, ScalingInterval, sqrt
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_dtensor
 from repro_torch.kernels.layout import (ALLOWED, BIG_D, C_COEF, DELTA, FC_MIN,
                                         FM_MAX, FM_MIN, GAMMA, KEY_COLS,
                                         LEGACY_NCOL, N_BOUNDS, NCOL, P0,
@@ -348,8 +348,10 @@ def dvfs_solve_kernel(tasks: torch.Tensor, *,
     An 8-column matrix is widened with the static ``interval``'s bounds
     (the homogeneous legacy layout); a 16-column matrix carries per-row
     bounds and ignores ``interval``.  A CPU tensor is solved by
-    :func:`dvfs_solve_plain`, a CUDA tensor by the CUDA kernel.
+    :func:`dvfs_solve_plain`, a CUDA tensor by the CUDA kernel.  A DTensor
+    raises.
     """
+    refuse_dtensor("dvfs_solve_kernel", tasks)
     _check_grid(grid)
     n = tasks.shape[0]
     if tasks.shape[1] == LEGACY_NCOL:

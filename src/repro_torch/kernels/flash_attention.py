@@ -58,7 +58,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_dtensor
 
 NEG_INF = -1e30
 DEFAULT_CHUNK = 1024
@@ -507,7 +507,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiates it), a CUDA tensor by the CUDA kernel (its own tiles;
     ``chunk`` does not change the function): through :class:`FlashAttention`
     and its backward kernel where grad is enabled and an input requires
-    it, else the forward alone."""
+    it, else the forward alone.  A DTensor input raises."""
+    refuse_dtensor("flash_attention_kernel", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk,

@@ -17,10 +17,15 @@ import torch
 from repro_torch.core import solver_cache
 from repro_torch.core.dvfs import WIDE, DvfsParams, ScalingInterval
 from repro_torch.kernels import layout
-from repro_torch.kernels.dvfs_opt import DEFAULT_GRID, dvfs_solve_kernel
+from repro_torch.kernels.dvfs_opt import (BT, DEFAULT_GRID, PAD_ROW,
+                                          dvfs_solve_kernel)
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.layout import DvfsSolution
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+
+#: Below this row count a multi-device split costs more in transfer and
+#: launches than it saves in compute.
+SHARD_MIN_ROWS = 4096
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,16 +80,51 @@ def kernel_tag(device: torch.device, grid: tuple = DEFAULT_GRID) -> str:
     return f"k{int(grid[0])}x{int(grid[1])}@{device.type}"
 
 
+def solve_devices(device: torch.device) -> list:
+    """The devices a split may use: every visible card when ``device`` is
+    CUDA, else ``[device]``."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def split_plan(m: int, n_devices: int) -> tuple:
+    """(devices used, rows a device) of a split of ``m`` rows, as the
+    reference computes it: the largest power-of-two count of devices,
+    halved while a device would get less than one kernel block ``BT``,
+    and whole blocks a device; (1, m) under ``SHARD_MIN_ROWS``."""
+    nd = 1
+    if n_devices > 1 and m >= SHARD_MIN_ROWS:
+        nd = 1 << (n_devices.bit_length() - 1)   # pow-2 device count
+        while nd > 1 and -(-m // nd) < BT:
+            nd //= 2
+    if nd == 1:
+        return 1, m
+    per_dev = -(-m // nd)
+    return nd, -(-per_dev // BT) * BT    # whole kernel blocks a device
+
+
 def dvfs_solve_matrix(mat: np.ndarray, *, grid: tuple = DEFAULT_GRID,
-                      device=None, block: bool = True):
+                      device=None, shard: bool = True,
+                      block: bool = True):
     """Solve a ``[m, 16]`` (or ``[m, 13]`` key-layout) task matrix with the
-    kernel on ``device``.  Returns the ``[m, 8]`` solution matrix as numpy.
+    kernel, split across devices when it pays off.  Returns the ``[m, 8]``
+    solution matrix as numpy.
+
+    With ``shard`` and at least ``SHARD_MIN_ROWS`` rows, the matrix is
+    padded with ``dvfs_opt.PAD_ROW`` to whole kernel blocks, split into
+    equal chunks over a power-of-two count of :func:`solve_devices`
+    (every visible card when ``device`` is CUDA), launched on each device
+    with no host wait in between and concatenated at the gather.  Rows are independent, so the result is bit-equal to one
+    launch.  Otherwise the whole matrix goes to ``device``.
 
     ``block=False`` is the pipelined scheduler's entry point: the kernel is
     launched but the host does NOT wait for it — the return value is the
-    solution tensor on the device, still being computed, which
-    ``solver_cache._materialize`` copies to the host at the pipeline's sync
-    point.  The whole matrix goes to one card.
+    solution tensor on the device, still being computed (one launch), or a
+    zero-argument callable that gathers the parts (a split), either of
+    which ``solver_cache._materialize`` resolves at the pipeline's sync
+    point.
     """
     device = resolve_device(device)
     mat = np.asarray(mat, np.float32)
@@ -92,9 +132,26 @@ def dvfs_solve_matrix(mat: np.ndarray, *, grid: tuple = DEFAULT_GRID,
         mat = np.concatenate(
             [mat, np.zeros((mat.shape[0], layout.NCOL - layout.KEY_COLS),
                            np.float32)], axis=1)
-    tasks = torch.from_numpy(np.ascontiguousarray(mat)).to(device)
-    out = dvfs_solve_kernel(tasks, grid=grid)
-    return solver_cache.to_numpy(out) if block else out
+    m = mat.shape[0]
+    devs = solve_devices(device) if shard else [device]
+    nd, chunk = split_plan(m, len(devs))
+    if nd == 1:
+        tasks = torch.from_numpy(np.ascontiguousarray(mat)).to(device)
+        out = dvfs_solve_kernel(tasks, grid=grid)
+        return solver_cache.to_numpy(out) if block else out
+    if nd * chunk != m:
+        pad = np.broadcast_to(PAD_ROW, (nd * chunk - m, layout.NCOL))
+        mat = np.concatenate([mat, pad], axis=0)
+    parts = [dvfs_solve_kernel(
+                 torch.from_numpy(mat[i * chunk:(i + 1) * chunk]).to(devs[i]),
+                 grid=grid)
+             for i in range(nd)]   # launches are async; the gather waits
+
+    def gather() -> np.ndarray:
+        return np.concatenate([solver_cache.to_numpy(p) for p in parts],
+                              axis=0)[:m]
+
+    return gather() if block else gather
 
 
 def dvfs_solve(params: DvfsParams, allowed: np.ndarray,
@@ -125,7 +182,9 @@ def dvfs_solve(params: DvfsParams, allowed: np.ndarray,
     process-wide LRU solve cache (:mod:`repro_torch.core.solver_cache`) —
     bit identical output, only previously-unseen rows touch the kernel.
     ``grid`` sets the kernel's hierarchical (coarse, fine) sweep sizes;
-    ``cache=None`` means the global cache when deduping.
+    ``cache=None`` means the global cache when deduping.  The matrix is
+    split across the cards as :func:`dvfs_solve_matrix` splits it (a split
+    is bit-equal to one launch, so both share the cache's rows).
     """
     device = resolve_device(device)
     cols = [np.asarray(f, np.float32) for f in params.astuple()]
@@ -147,5 +206,5 @@ def dvfs_solve(params: DvfsParams, allowed: np.ndarray,
             keys, solve, tag=kernel_tag(device, grid),
             cache=solver_cache.GLOBAL_CACHE if cache is None else cache)
     else:
-        out = solver_cache.to_numpy(solve(keys))
+        out = solver_cache._materialize(solve(keys))
     return solver_cache.rows_to_solution(out)

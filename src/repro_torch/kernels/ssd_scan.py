@@ -60,7 +60,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_dtensor
 from repro_torch.kernels.flash_attention import _aligned
 
 #: the CUDA kernel's chunk length (csrc kQ)
@@ -607,7 +607,9 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     :func:`ssd_scan_plain` with ``chunk`` (autograd differentiates it), a
     CUDA tensor by the CUDA kernel with its own :data:`KERNEL_CHUNK` (the
     same function): through :class:`SSDScan` and its backward kernel where
-    grad is enabled and an input requires it, else the forward alone."""
+    grad is enabled and an input requires it, else the forward alone.  A
+    DTensor input raises."""
+    refuse_dtensor("ssd_scan_kernel", x, dt, a, b, c, init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk, init_state)
     if x.device.type == "cuda":

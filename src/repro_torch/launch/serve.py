@@ -9,6 +9,14 @@ builds the decode cache, and ``Model.decode_step`` runs once per new token
 for the whole batch.  As there, a vlm prompt gets zero patch embeddings
 and an encdec prompt zero audio frames (both frontends are stubs).  Weights are random, drawn from ``--seed``.  Without
 ``--device`` it runs on the CUDA card and raises without one.
+
+Under ``torchrun --nproc-per-node N`` with N > 1, ``main`` binds, as the
+reference does, a ``("data", "model")`` mesh of every rank on the model
+axis with ``partition.fsdp_rules``: the weights are sharded over the ranks
+and gathered at their use, the decode cache is sharded on its positions
+(flash-decode, the cache length rounded up to a multiple of N), and rank 0
+prints.  Alone it serves plain tensors with no mesh: a one-rank mesh gives
+the same tokens and costs the ``DTensor`` layer's host time.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch import partition
 from repro_torch.configs import registry
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, process_group
 from repro_torch.launch.train import preset_config
 from repro_torch.models.layers import serving_copy
 from repro_torch.models.model import Model
@@ -139,21 +149,40 @@ def main(argv=None):
                          "the plain torch versions)")
     args = ap.parse_args(argv)
 
+    dev = resolve_device(args.device)
+    with process_group(dev):
+        return _serve(args, dev)
+
+
+def _serve(args, dev):
     cfg = preset_config(args.arch, args.preset)
-    model = Model(cfg, device=args.device)
+    model = Model(cfg, device=dev)
+    world = torch.distributed.get_world_size()
+    rules = None
+    if world > 1:
+        rules = partition.fsdp_rules(
+            make_host_mesh(data=1, model=world, device=dev), args.requests)
     rng = np.random.default_rng(args.seed)
-    params = model.init(args.seed)
-    srv = Server(model, params, args.requests,
-                 max_seq=args.prompt_len + args.gen + 8, device=args.device)
-    del params
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(1, cfg.vocab_size, args.prompt_len),
-                    max_new=args.gen)
-            for i in range(args.requests)]
-    stats = srv.run(reqs)
-    print(json.dumps({"arch": cfg.name, "device": str(model.device),
-                      **{k: (round(v, 4) if isinstance(v, float) else v)
-                         for k, v in stats.items()}}))
+    max_seq = -(-(args.prompt_len + args.gen + 8) // world) * world
+    with partition.use_rules(rules):
+        params = model.init(args.seed)
+        if rules is not None:
+            params = partition.place(params, partition.param_shardings(
+                rules, model.param_axes()))
+        srv = Server(model, params, args.requests, max_seq=max_seq,
+                     device=dev)
+        del params
+        reqs = [Request(rid=i,
+                        prompt=rng.integers(1, cfg.vocab_size,
+                                            args.prompt_len),
+                        max_new=args.gen)
+                for i in range(args.requests)]
+        stats = srv.run(reqs)
+    if torch.distributed.get_rank() == 0:
+        print(json.dumps({"arch": cfg.name, "device": str(model.device),
+                          "ranks": world,
+                          **{k: (round(v, 4) if isinstance(v, float) else v)
+                             for k, v in stats.items()}}))
     return stats
 
 

@@ -11,6 +11,14 @@ assigned config verbatim; ``smoke`` reduces it to CPU scale; ``100m`` is a
 ``examples/train_100m.py``.  Without ``--device`` it runs on the CUDA card
 and raises without one; every family trains there (the ssm family's SSD
 scan through its forward and backward kernels).
+
+Under ``torchrun --nproc-per-node N`` with N > 1 (one rank a card, or gloo
+ranks with ``--device cpu``), it binds, as the reference does, a
+``("data", "model")`` mesh of every rank on the data axis with
+``partition.fsdp_rules``: the state is sharded (FSDP), each rank trains on
+its shard of the batch, and rank 0 prints.  Alone it trains plain tensors
+with no mesh: a one-rank mesh gives the same step and costs the
+``DTensor`` layer's host time.
 """
 
 from __future__ import annotations
@@ -22,9 +30,11 @@ import json
 import numpy as np
 import torch
 
+from repro_torch import partition
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, process_group
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.loop import LoopConfig, run_loop
@@ -77,31 +87,51 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    with process_group(dev):
+        out = _train(args, dev)
+    return out
+
+
+def _train(args, dev):
     cfg = preset_config(args.arch, args.preset)
     model = Model(cfg, device=dev)
+    world = torch.distributed.get_world_size()
+    rules = None
+    if world > 1:
+        rules = partition.fsdp_rules(
+            make_host_mesh(data=world, model=1, device=dev), args.batch)
     opt = AdamW(learning_rate=cosine_schedule(args.lr, WARMUP, args.steps))
     data = SyntheticLMData.for_config(cfg, args.seq, args.batch,
                                       seed=args.seed, mode=args.data)
-    state = init_state(model, opt, args.seed)
-    step = make_train_step(model, opt, microbatches=args.microbatches,
-                           compress_grads=args.compress_grads)
 
     def put_batch(batch):
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
-    out = run_loop(step, state, data, LoopConfig(
-        total_steps=args.steps,
-        checkpoint_every=args.checkpoint_every,
-        checkpoint_dir=args.checkpoint_dir,
-        metrics_path=args.metrics), put_batch=put_batch)
+    with partition.use_rules(rules):
+        state = init_state(model, opt, args.seed)
+        step = make_train_step(model, opt, microbatches=args.microbatches,
+                               compress_grads=args.compress_grads,
+                               param_axes=model.param_axes())
+        out = run_loop(step, state, data, LoopConfig(
+            total_steps=args.steps,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir,
+            metrics_path=args.metrics), put_batch=put_batch,
+            log=print if torch.distributed.get_rank() == 0 else _quiet)
     losses = out["losses"]
-    print(json.dumps({
-        "arch": cfg.name, "device": str(dev), "steps": out["final_step"],
-        "first_loss": losses[0] if losses else None,
-        "last_loss": float(np.mean(losses[-5:])) if losses else None,
-        "stragglers": out["stragglers"], "recoveries": out["recoveries"],
-    }))
+    if torch.distributed.get_rank() == 0:
+        print(json.dumps({
+            "arch": cfg.name, "device": str(dev), "steps": out["final_step"],
+            "ranks": world,
+            "first_loss": losses[0] if losses else None,
+            "last_loss": float(np.mean(losses[-5:])) if losses else None,
+            "stragglers": out["stragglers"], "recoveries": out["recoveries"],
+        }))
     return out
+
+
+def _quiet(msg: str) -> None:
+    pass
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ Parameters are plain nested dicts of tensors under the JAX package's key
 names (``models/layers.py`` there), so a JAX pytree carries across key for
 key (:func:`repro_torch.convert.model_params_from_arrays`).  Master weights
 are float32 (:data:`PARAM_DTYPE`); every matrix is cast to bfloat16
-(:data:`COMPUTE_DTYPE`) where it is used, as the reference's
-``partition.wcast`` does on one card.
+(:data:`COMPUTE_DTYPE`) where it is used, by ``partition.wcast`` as in the
+reference (under rules it also gathers a sharded weight).  Each parameter
+is created with its logical axes; :class:`AxesBuilder` builds the axes
+tree of the same layout without allocating anything.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch import partition
 
 Params = Dict[str, Any]
 
@@ -34,8 +38,12 @@ class ParamBuilder:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
-    def param(self, shape: Tuple[int, ...], init: str = "normal",
-              scale: float = 0.02) -> torch.Tensor:
+    def param(self, shape: Tuple[int, ...], axes: Tuple,
+              init: str = "normal", scale: float = 0.02) -> torch.Tensor:
+        """A parameter of ``shape``; ``axes`` are its logical axes, one per
+        dim (recorded by :class:`AxesBuilder`)."""
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} annotated with {axes}")
         kw = dict(dtype=PARAM_DTYPE, device=self.device)
         if init == "normal":
             return torch.randn(shape, generator=self.generator, **kw) * scale
@@ -46,6 +54,18 @@ class ParamBuilder:
         if init == "uniform":  # U(0, scale), as the reference packs it
             return torch.rand(shape, generator=self.generator, **kw) * scale
         raise ValueError(init)
+
+
+class AxesBuilder:
+    """A :class:`ParamBuilder` whose ``param`` returns the logical-axes
+    tuple instead of a tensor: the same init code then builds the axes tree
+    in the parameters' own layout (``Model.param_axes``)."""
+
+    def param(self, shape: Tuple[int, ...], axes: Tuple,
+              init: str = "normal", scale: float = 0.02) -> tuple:
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} annotated with {axes}")
+        return tuple(axes)
 
 
 #: Matrices the forward reads in float32, which a serving copy keeps so: the
@@ -140,16 +160,18 @@ def sinusoidal_positions(n: int, d: int) -> np.ndarray:
 
 def init_mlp(b: ParamBuilder, d: int, ff: int, mlp_type: str) -> Params:
     if mlp_type in ("swiglu", "geglu"):
-        return {"wi": b.param((d, 2 * ff), scale=0.02),
-                "wo": b.param((ff, d), scale=0.02)}
+        return {"wi": b.param((d, 2 * ff), ("embed", "ff"), scale=0.02),
+                "wo": b.param((ff, d), ("ff", "embed"), scale=0.02)}
     if mlp_type in ("squared_relu", "gelu"):
-        return {"wi": b.param((d, ff), scale=0.02),
-                "wo": b.param((ff, d), scale=0.02)}
+        return {"wi": b.param((d, ff), ("embed", "ff"), scale=0.02),
+                "wo": b.param((ff, d), ("ff", "embed"), scale=0.02)}
     raise ValueError(mlp_type)
 
 
 def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    h = x @ params["wi"].to(COMPUTE_DTYPE)
+    wi = partition.wcast(params["wi"], COMPUTE_DTYPE, ("embed", "ff"))
+    wo = partition.wcast(params["wo"], COMPUTE_DTYPE, ("ff", "embed"))
+    h = x @ wi
     if mlp_type in ("swiglu", "geglu"):
         gate, up = torch.chunk(h, 2, dim=-1)
         if mlp_type == "swiglu":
@@ -161,7 +183,8 @@ def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         h = torch.square(torch.relu(h))
     elif mlp_type == "gelu":
         h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
-    return h @ params["wo"].to(COMPUTE_DTYPE)
+    h = partition.constrain(h, ("batch", "seq", "ff"))
+    return h @ wo
 
 
 # ---------------------------------------------------------------------------
@@ -173,13 +196,19 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` in bfloat16 (== cast, then gather).  Through
     ``F.embedding``, whose gradient sums the rows of repeated tokens in a
     fixed order on the card, where an indexing gradient adds them with
-    atomics: a replayed training step gives the same bits."""
-    return F.embedding(tokens, table).to(COMPUTE_DTYPE)
+    atomics: a replayed training step gives the same bits.  A sharded
+    table is gathered in its own dtype, so the gradient sums stay
+    float32.  tokens: [B, S]."""
+    table = partition.gather(table)
+    out = F.embedding(tokens, table).to(COMPUTE_DTYPE)
+    return partition.constrain(out, ("batch", "seq", "act_embed"))
 
 
 def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """Logits in float32 from bfloat16 activations and head."""
-    return (x @ head.to(COMPUTE_DTYPE)).float()
+    """Logits in float32 from bfloat16 activations and head; the vocab dim
+    carries the "vocab" logical axis."""
+    logits = x @ partition.wcast(head, COMPUTE_DTYPE, ("embed", "vocab"))
+    return partition.constrain(logits.float(), ("batch", "seq", "vocab"))
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

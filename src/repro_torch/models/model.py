@@ -29,6 +29,12 @@ per-layer ``jax.checkpoint``.  The reference's ``stack_layers`` and
 ``_barrier`` (an ``optimization_barrier`` that fences XLA's scheduling
 around the ``lax.scan`` carry) are artifacts of scanning stacked weights:
 the port's Python loop over a list of layers needs neither.
+
+Under ``partition`` rules the parameters are ``DTensor``s (each weight
+gathered at its use by ``partition.wcast``), the activations are this
+rank's shard of the batch, and the attention families' decode cache is
+sharded on its positions (``models/attention.py``).  ``param_axes`` gives
+the logical axes of every parameter in the port's per-layer layout.
 """
 
 from __future__ import annotations
@@ -38,24 +44,28 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import partition
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (COMPUTE_DTYPE, ParamBuilder, Params,
-                                       embed_lookup, init_mlp, layer_norm, mlp,
-                                       rms_norm, sinusoidal_positions)
+from repro_torch.models.layers import (COMPUTE_DTYPE, AxesBuilder,
+                                       ParamBuilder, Params, embed_lookup,
+                                       init_mlp, layer_norm, mlp, rms_norm,
+                                       sinusoidal_positions)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 CE_CHUNK = 512  # sequence chunk for the checkpointed cross-entropy
+#: The residual stream's logical axes: this rank's batch, the whole rest.
+ACT = ("batch", "seq", "act_embed")
 
 
 def _ce_chunk(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor, valid_vocab: Optional[int]):
     """(sum of the masked NLL, sum of the mask) of one sequence chunk."""
-    logits = (x @ head).float()
+    logits = partition.constrain((x @ head).float(), ("batch", None, "vocab"))
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         vocab = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(vocab >= valid_vocab, -1e30, logits)
@@ -84,7 +94,8 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     mask = mask.float().expand(B, S)
     labels = labels.long()
-    head = head.to(COMPUTE_DTYPE)   # one cast, shared by every chunk
+    # One cast (and under rules one gather), shared by every chunk.
+    head = partition.wcast(head, COMPUTE_DTYPE, (None, "vocab"))
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, S, c):
@@ -98,15 +109,16 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
 
 def _init_norm(b: ParamBuilder, d: int, kind: str) -> Params:
     if kind == "rms":
-        return {"scale": b.param((d,), init="zeros")}
-    return {"scale": b.param((d,), init="ones"),
-            "bias": b.param((d,), init="zeros")}
+        return {"scale": b.param((d,), ("embed",), init="zeros")}
+    return {"scale": b.param((d,), ("embed",), init="ones"),
+            "bias": b.param((d,), ("embed",), init="zeros")}
 
 
 def _norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    scale = partition.gather(p["scale"])
     if kind == "rms":
-        return rms_norm(x, p["scale"], eps)
-    return layer_norm(x, p["scale"], p["bias"], eps)
+        return rms_norm(x, scale, eps)
+    return layer_norm(x, scale, partition.gather(p["bias"]), eps)
 
 
 class Model:
@@ -121,6 +133,7 @@ class Model:
             raise ValueError(f"family {cfg.family!r} is none of {FAMILIES}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._paxes = None
 
     @property
     def norm_kind(self) -> str:
@@ -148,15 +161,26 @@ class Model:
     def init(self, seed: int = 0) -> Params:
         """Random parameters from ``seed`` (float32 master weights, the
         reference's initializers and shapes; not its random draws)."""
+        return self._build(ParamBuilder(seed, self.device))
+
+    def param_axes(self):
+        """The logical-axes tree of :meth:`init`'s parameters, in the same
+        layout (per-layer lists, the reference's stacked ``"layers"`` entry
+        dropped), built without allocating a tensor."""
+        if self._paxes is None:
+            self._paxes = self._build(AxesBuilder())
+        return self._paxes
+
+    def _build(self, b) -> Params:
         cfg = self.cfg
-        b = ParamBuilder(seed, self.device)
         params: Params = {
             # Vocab padded to a multiple of 256; logits above vocab_size are
             # masked to -1e30 where they surface.
-            "embed": b.param((cfg.padded_vocab, cfg.d_model), scale=0.02)}
+            "embed": b.param((cfg.padded_vocab, cfg.d_model),
+                             ("vocab", "embed"), scale=0.02)}
         if not cfg.tie_embeddings:
             params["head"] = b.param((cfg.d_model, cfg.padded_vocab),
-                                     scale=0.02)
+                                     ("embed", "vocab"), scale=0.02)
         params["final_norm"] = _init_norm(b, cfg.d_model, self.norm_kind)
         fam = cfg.family
         if fam in ("dense", "vlm", "moe"):
@@ -208,8 +232,10 @@ class Model:
         """x: [B, d] final hidden states -> [B, V] f32, pads masked."""
         x = _norm(params["final_norm"], x[:, None], self.norm_kind,
                   self.cfg.norm_eps)[:, 0]
-        logits = x @ self.head_matrix(params).to(COMPUTE_DTYPE)
-        return self._mask_pad_logits(logits.float())
+        logits = x @ partition.wcast(self.head_matrix(params), COMPUTE_DTYPE,
+                                     ("embed", "vocab"))
+        logits = partition.constrain(logits.float(), ("batch", "vocab"))
+        return self._mask_pad_logits(logits)
 
     # ----- forward (training) ---------------------------------------------
     def _attn_mlp_layer(self, p: Params, x: torch.Tensor, positions, *,
@@ -226,12 +252,14 @@ class Model:
         h = _norm(p["ln2"], x, kind, cfg.norm_eps)
         if cfg.family == "moe":
             y, aux = moe_lib.moe_mlp(p["mlp"], h, cfg)
-            return x + y, aux
-        return x + mlp(p["mlp"], h, cfg.mlp_type), None
+            return partition.constrain(x + y, ACT), aux
+        x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        return partition.constrain(x, ACT), None
 
     def _ssm_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(x, p["ln"]["scale"], self.cfg.norm_eps)
-        return x + ssm_lib.mamba2_block(p["mixer"], h, self.cfg)
+        h = _norm(p["ln"], x, "rms", self.cfg.norm_eps)
+        x = x + ssm_lib.mamba2_block(p["mixer"], h, self.cfg)
+        return partition.constrain(x, ACT)
 
     def _hybrid_train_layer(self, p: Params, x: torch.Tensor, positions,
                             kind: str) -> torch.Tensor:
@@ -243,7 +271,8 @@ class Model:
             x = x + attn_lib.attention(p["block"], h, cfg, positions=positions,
                                        causal=True, window=cfg.local_window)
         h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-        return x + mlp(p["mlp"], h, cfg.mlp_type)
+        x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        return partition.constrain(x, ACT)
 
     def _hybrid_unit(self, unit, x: torch.Tensor, positions) -> torch.Tensor:
         for p, kind in zip(unit, self.cfg.block_pattern):
@@ -259,7 +288,8 @@ class Model:
         h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
         x = x + attn_lib.attention(p["cross"], h, cfg, kv_x=enc, rope=False)
         h = _norm(p["ln3"], x, "ln", cfg.norm_eps)
-        return x + mlp(p["mlp"], h, cfg.mlp_type)
+        x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        return partition.constrain(x, ACT)
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -349,7 +379,7 @@ class Model:
 
         def kv(n_layers, window):
             return attn_lib.init_decode_cache(cfg, n_layers, batch, window,
-                                              device=dev)
+                                              device=dev)[0]
 
         if fam in ("dense", "vlm", "moe"):
             k, v = kv(cfg.n_layers, self.cache_window(max_seq))
@@ -406,7 +436,8 @@ class Model:
             st = {"k": k, "v": v}
         x = x + out
         h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-        return x + mlp(p["mlp"], h, cfg.mlp_type), st
+        x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        return partition.constrain(x, ACT), st
 
     def _hybrid_decode(self, p: Params, x, kind: str, st: dict, pos: int):
         """One hybrid layer at decode; ``st`` is updated in place."""
@@ -418,8 +449,9 @@ class Model:
             st["conv"].copy_(conv)
             st["h"].copy_(hst)
         else:
-            out, _, _ = attn_lib.decode_attn(p["block"], h, cfg, st["k"],
-                                             st["v"], pos, st["k"].shape[1])
+            out, _, _ = attn_lib.decode_attn(
+                p["block"], h, cfg, st["k"], st["v"], pos,
+                attn_lib.global_window(st["k"].shape[1]))
         x = x + out
         h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
         return x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
@@ -435,6 +467,7 @@ class Model:
         pos = torch.from_numpy(sinusoidal_positions(F, cfg.d_model)).to(
             self.device)
         x = frames.to(COMPUTE_DTYPE) + pos.to(COMPUTE_DTYPE)
+        x = partition.constrain(x, ACT)
 
         def layer(p, x):
             return self._attn_mlp_layer(p, x, None, causal=False,
@@ -464,25 +497,25 @@ class Model:
         positions = torch.arange(S, device=self.device)[None, :]
         cache = self.init_cache(B, max_seq)
         if fam in ("dense", "vlm", "moe"):
-            W = cache["k"].shape[2]
+            W = self.cache_window(max_seq)
             prefix = cfg.n_patches if fam == "vlm" else 0
             for i, p in enumerate(params["layers"]):
-                h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+                h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
                 out, (k, v) = attn_lib.attention_with_kv(
                     p["attn"], h, cfg, positions=positions,
                     window=cfg.sliding_window, bidirectional_prefix=prefix)
                 x = x + out
-                h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-                x = x + self._ffn(p["mlp"], h)
+                h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
+                x = partition.constrain(x + self._ffn(p["mlp"], h), ACT)
                 kc, vc = attn_lib.pack_cache(k, v, W)
                 cache["k"][i].copy_(kc)
                 cache["v"][i].copy_(vc)
         elif fam == "ssm":
             for i, p in enumerate(params["layers"]):
-                h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+                h = _norm(p["ln"], x, "rms", cfg.norm_eps)
                 out, (conv, ssm) = ssm_lib.mamba2_block(p["mixer"], h, cfg,
                                                        return_state=True)
-                x = x + out
+                x = partition.constrain(x + out, ACT)
                 cache["conv"][i].copy_(conv)
                 cache["ssm"][i].copy_(ssm)
         elif fam == "hybrid":
@@ -512,6 +545,7 @@ class Model:
                                            rope=False)
                 h = _norm(p["ln3"], x, "ln", cfg.norm_eps)
                 x = x + mlp(p["mlp"], h, cfg.mlp_type)
+                x = partition.constrain(x, ACT)
                 kc, vc = attn_lib.pack_cache(k, v, max_seq)
                 for name, t in (("k", kc), ("v", vc), ("xk", xk), ("xv", xv)):
                     cache[name][i].copy_(t)
@@ -527,20 +561,20 @@ class Model:
         fam = cfg.family
         token = torch.as_tensor(token, device=self.device)
         pos = int(pos)
-        x = embed_lookup(params["embed"], token)                   # [B, d]
+        x = embed_lookup(params["embed"], token[:, None])[:, 0]    # [B, d]
         if fam in ("dense", "vlm", "moe"):
-            W = cache["k"].shape[2]
+            W = attn_lib.global_window(cache["k"].shape[2])
             for i, p in enumerate(params["layers"]):
-                h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+                h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
                 out, _, _ = attn_lib.decode_attn(p["attn"], h, cfg,
                                                  cache["k"][i], cache["v"][i],
                                                  pos, W)
                 x = x + out
-                h = rms_norm(x[:, None], p["ln2"]["scale"], cfg.norm_eps)
+                h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
                 x = x + self._ffn(p["mlp"], h)[:, 0]
         elif fam == "ssm":
             for i, p in enumerate(params["layers"]):
-                h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+                h = _norm(p["ln"], x, "rms", cfg.norm_eps)
                 out, (conv, ssm) = ssm_lib.mamba2_decode(
                     p["mixer"], h, cfg, (cache["conv"][i], cache["ssm"][i]))
                 x = x + out
@@ -557,7 +591,7 @@ class Model:
                 x = self._hybrid_decode(p, x, pattern[i], cache["rem"][i],
                                         pos)
         else:  # encdec
-            W = cache["k"].shape[2]
+            W = attn_lib.global_window(cache["k"].shape[2])
             for i, p in enumerate(params["layers"]):
                 h = _norm(p["ln1"], x[:, None], "ln", cfg.norm_eps)[:, 0]
                 out, _, _ = attn_lib.decode_attn(p["self"], h, cfg,

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamBuilder, Params
 
@@ -31,9 +32,13 @@ DEFAULT_GROUP = 256
 def init_moe(b: ParamBuilder, cfg: ModelConfig) -> Params:
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     mult = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
-    return {"router": b.param((d, E), scale=0.02),
-            "wi": b.param((E, d, mult * ff), scale=0.02),
-            "wo": b.param((E, ff, d), scale=0.02)}
+    # Expert dim carries the model axis (EP); the per-expert ff dim must not
+    # also map to "model", hence the separate "expert_ff" logical axis.
+    return {"router": b.param((d, E), ("embed", "expert"), scale=0.02),
+            "wi": b.param((E, d, mult * ff), ("expert", "embed", "expert_ff"),
+                          scale=0.02),
+            "wo": b.param((E, ff, d), ("expert", "expert_ff", "embed"),
+                          scale=0.02)}
 
 
 def _group(n_tokens: int, group: int) -> int:
@@ -65,17 +70,20 @@ def moe_routing(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     T = _group(N, group)
     G = N // T
     C = _capacity(T, k, E, cfg.capacity_factor)
-    xg = x.reshape(G, T, d)
+    xg = partition.constrain(x.reshape(G, T, d), ("batch", None, "act_embed"))
 
-    logits = xg.float() @ params["router"].float()             # [G, T, E]
+    router = partition.wcast(params["router"], torch.float32,
+                             ("embed", "expert"))
+    logits = xg.float() @ router                               # [G, T, E]
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = torch.topk(probs, k, dim=-1)                  # [G, T, k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    # Load balance (top-1 fraction against mean probability) + z-loss.
-    load = _one_hot(eidx[..., 0], E, torch.ones_like(gate[..., 0])).mean(
-        dim=(0, 1))
-    importance = probs.mean(dim=(0, 1))
+    # Load balance (top-1 fraction against mean probability) + z-loss; the
+    # two means over the whole batch, as the reference's over every group.
+    load = partition.batch_mean(_one_hot(
+        eidx[..., 0], E, torch.ones_like(gate[..., 0])).mean(dim=(0, 1)))
+    importance = partition.batch_mean(probs.mean(dim=(0, 1)))
     aux = E * torch.sum(load * importance)
     aux = aux + 1e-3 * torch.square(torch.logsumexp(logits, dim=-1)).mean()
 
@@ -111,7 +119,12 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     # Expert buffers [E, G, C, d]: exact (each slot holds one token or 0).
     expert_in = torch.einsum("gtx,gtd->gxd", dispatch, xg.to(COMPUTE_DTYPE))
     expert_in = expert_in.reshape(G, E, C, d).permute(1, 0, 2, 3)
-    h = expert_in.reshape(E, G * C, d) @ params["wi"].to(COMPUTE_DTYPE)
+    expert_in = partition.constrain(expert_in, ("expert", "batch", None, None))
+    wi = partition.wcast(params["wi"], COMPUTE_DTYPE,
+                         ("expert", "embed", "expert_ff"))
+    wo = partition.wcast(params["wo"], COMPUTE_DTYPE,
+                         ("expert", "expert_ff", "embed"))
+    h = expert_in.reshape(E, G * C, d) @ wi
     if cfg.mlp_type in ("swiglu", "geglu"):
         g_, u_ = torch.chunk(h, 2, dim=-1)
         act = (F.silu(g_.float()) if cfg.mlp_type == "swiglu"
@@ -121,10 +134,13 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         h = torch.square(torch.relu(h))
     else:
         h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
-    expert_out = h @ params["wo"].to(COMPUTE_DTYPE)            # [E, G*C, d]
+    h = partition.constrain(h.reshape(E, G, C, -1),
+                            ("expert", "batch", None, "expert_ff"))
+    expert_out = h.reshape(E, G * C, -1) @ wo                  # [E, G*C, d]
     expert_out = expert_out.reshape(E, G, C, d).permute(1, 0, 2, 3)
     y = torch.bmm(combine.to(COMPUTE_DTYPE),
                   expert_out.reshape(G, E * C, d))             # [G, T, d]
+    y = partition.constrain(y, ("batch", None, "act_embed"))
     return y.reshape(B, S, d), aux
 
 

@@ -26,9 +26,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamBuilder, Params
-from repro_torch.models.ssm import softplus
+from repro_torch.models.ssm import conv_weights, softplus
 
 C_FACTOR = 8.0
 
@@ -36,24 +37,32 @@ C_FACTOR = 8.0
 def init_rglru_block(b: ParamBuilder, cfg: ModelConfig) -> Params:
     d = cfg.d_model
     r = cfg.rnn_width_
-    return {"w_gate": b.param((d, r), scale=0.02),
-            "w_in": b.param((d, r), scale=0.02),
-            "conv_w": b.param((cfg.conv_width, r), scale=0.02),
-            "conv_b": b.param((r,), init="zeros"),
-            "wa": b.param((r, r), scale=0.02),
-            "ba": b.param((r,), init="zeros"),
-            "wx": b.param((r, r), scale=0.02),
-            "bx": b.param((r,), init="zeros"),
-            "lam": b.param((r,), init="uniform", scale=1.0),
-            "w_out": b.param((r, d), scale=0.02)}
+    return {"w_gate": b.param((d, r), ("embed", "inner"), scale=0.02),
+            "w_in": b.param((d, r), ("embed", "inner"), scale=0.02),
+            "conv_w": b.param((cfg.conv_width, r), (None, "inner"),
+                              scale=0.02),
+            "conv_b": b.param((r,), ("inner",), init="zeros"),
+            # RG-LRU gates (first dim replicated: both dims on the model
+            # axis would double-assign the mesh axis)
+            "wa": b.param((r, r), (None, "inner"), scale=0.02),
+            "ba": b.param((r,), ("inner",), init="zeros"),
+            "wx": b.param((r, r), (None, "inner"), scale=0.02),
+            "bx": b.param((r,), ("inner",), init="zeros"),
+            "lam": b.param((r,), ("inner",), init="uniform", scale=1.0),
+            "w_out": b.param((r, d), ("inner", "embed"), scale=0.02)}
 
 
 def _gates(params: Params, x: torch.Tensor):
     """(a_t, beta_t * i_t ⊙ x_t) for the linear recurrence, in float32."""
+    def f32(name, axes):
+        return partition.wcast(params[name], torch.float32, axes)
+
     xf = x.float()
-    r_gate = torch.sigmoid(xf @ params["wa"].float() + params["ba"].float())
-    i_gate = torch.sigmoid(xf @ params["wx"].float() + params["bx"].float())
-    log_a = -C_FACTOR * softplus(params["lam"].float()) * r_gate
+    r_gate = torch.sigmoid(xf @ f32("wa", (None, "inner"))
+                           + f32("ba", ("inner",)))
+    i_gate = torch.sigmoid(xf @ f32("wx", (None, "inner"))
+                           + f32("bx", ("inner",)))
+    log_a = -C_FACTOR * softplus(f32("lam", ("inner",))) * r_gate
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     return a, beta * i_gate * xf
@@ -123,8 +132,11 @@ def recurrent_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     [B, W-1, r], h [B, r]).  Returns y [B, S, d], and with ``return_state``
     also the state after the last token."""
     conv_state, h0 = state if state is not None else (None, None)
-    gate = _gelu(x @ params["w_gate"].to(COMPUTE_DTYPE))
-    u = x @ params["w_in"].to(COMPUTE_DTYPE)
+    gate = _gelu(x @ partition.wcast(params["w_gate"], COMPUTE_DTYPE,
+                                     ("embed", "inner")))
+    u = x @ partition.wcast(params["w_in"], COMPUTE_DTYPE,
+                            ("embed", "inner"))
+    u = partition.constrain(u, ("batch", "seq", "inner"))
 
     new_conv = None
     if return_state:
@@ -134,11 +146,11 @@ def recurrent_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if hist.shape[1] < W - 1:
             hist = F.pad(hist, (0, 0, W - 1 - hist.shape[1], 0))
         new_conv = hist[:, -(W - 1):]
-    u = _causal_conv(u, params["conv_w"].to(COMPUTE_DTYPE),
-                     params["conv_b"].to(COMPUTE_DTYPE), conv_state)
+    u = _causal_conv(u, *conv_weights(params), conv_state)
 
     h, h_last = rglru_scan(params, u, h0)
-    y = (h * gate) @ params["w_out"].to(COMPUTE_DTYPE)
+    y = (h * gate) @ partition.wcast(params["w_out"], COMPUTE_DTYPE,
+                                     ("inner", "embed"))
     if return_state:
         return y, (new_conv.to(COMPUTE_DTYPE), h_last)
     return y
@@ -148,13 +160,15 @@ def recurrent_block_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
                            state: Tuple[torch.Tensor, torch.Tensor]):
     """One-token decode.  x: [B, d] -> (y [B, d], new (conv, h) state)."""
     conv_state, h_prev = state
-    gate = _gelu(x @ params["w_gate"].to(COMPUTE_DTYPE))
-    u = x @ params["w_in"].to(COMPUTE_DTYPE)
+    gate = _gelu(x @ partition.wcast(params["w_gate"], COMPUTE_DTYPE,
+                                     ("embed", "inner")))
+    u = x @ partition.wcast(params["w_in"], COMPUTE_DTYPE, ("embed", "inner"))
     hist = torch.cat([conv_state.to(u.dtype), u[:, None, :]], dim=1)
-    w = params["conv_w"].to(COMPUTE_DTYPE)
-    u = torch.sum(hist * w[None], dim=1) + params["conv_b"].to(COMPUTE_DTYPE)
+    w, bias = conv_weights(params)
+    u = torch.sum(hist * w[None], dim=1) + bias
     h = rglru_step(params, u, h_prev)
-    y = (h.to(COMPUTE_DTYPE) * gate) @ params["w_out"].to(COMPUTE_DTYPE)
+    y = (h.to(COMPUTE_DTYPE) * gate) @ partition.wcast(
+        params["w_out"], COMPUTE_DTYPE, ("inner", "embed"))
     return y, (hist[:, 1:], h)
 
 

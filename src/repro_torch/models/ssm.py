@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+from repro_torch import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamBuilder, Params, rms_norm
 
@@ -35,15 +36,29 @@ def init_mamba2(b: ParamBuilder, cfg: ModelConfig) -> Params:
     conv_dim = di + 2 * n  # conv over (x, B, C)
     return {
         # in_proj packs (z, x, B, C, dt)
-        "in_proj": b.param((d, 2 * di + 2 * n + h), scale=0.02),
-        "conv_w": b.param((cfg.conv_width, conv_dim), scale=0.02),
-        "conv_b": b.param((conv_dim,), init="zeros"),
-        "a_log": b.param((h,), init="uniform", scale=1.0),
-        "d_skip": b.param((h,), init="ones"),
-        "dt_bias": b.param((h,), init="zeros"),
-        "norm": b.param((di,), init="zeros"),
-        "out_proj": b.param((di, d), scale=0.02),
+        "in_proj": b.param((d, 2 * di + 2 * n + h), ("embed", "inner"),
+                           scale=0.02),
+        "conv_w": b.param((cfg.conv_width, conv_dim), (None, "inner"),
+                          scale=0.02),
+        "conv_b": b.param((conv_dim,), ("inner",), init="zeros"),
+        "a_log": b.param((h,), (None,), init="uniform", scale=1.0),
+        "d_skip": b.param((h,), (None,), init="ones"),
+        "dt_bias": b.param((h,), (None,), init="zeros"),
+        "norm": b.param((di,), ("inner",), init="zeros"),
+        "out_proj": b.param((di, d), ("inner", "embed"), scale=0.02),
     }
+
+
+def conv_weights(params: Params):
+    """A depthwise conv's weight [W, C] and bias in bf16 (the ssm and
+    RG-LRU blocks' ``conv_w`` / ``conv_b``)."""
+    return (partition.wcast(params["conv_w"], COMPUTE_DTYPE, (None, "inner")),
+            partition.wcast(params["conv_b"], COMPUTE_DTYPE, ("inner",)))
+
+
+def _head_vector(params: Params, name: str) -> torch.Tensor:
+    """A per-head vector (``a_log``, ``dt_bias``, ``d_skip``) in float32."""
+    return partition.wcast(params[name], torch.float32, (None,))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -101,7 +116,8 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     y or (y, new_state)."""
     B, S, d = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ params["in_proj"].to(COMPUTE_DTYPE)
+    zxbcdt = x @ partition.wcast(params["in_proj"], COMPUTE_DTYPE,
+                                 ("embed", "inner"))
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
 
     conv_state, ssm_state = state if state is not None else (None, None)
@@ -113,23 +129,25 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         new_conv = hist[:, -(W - 1):, :]
         if hist.shape[1] < W - 1:  # left-pad short prefills
             new_conv = F.pad(hist, (0, 0, W - 1 - hist.shape[1], 0))
-    xbc = _causal_conv(xbc, params["conv_w"].to(COMPUTE_DTYPE),
-                       params["conv_b"].to(COMPUTE_DTYPE), conv_state)
+    w, bias = conv_weights(params)
+    xbc = _causal_conv(xbc, w, bias, conv_state)
 
     xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    xs = partition.constrain(xs, ("batch", "seq", "inner"))
     xs = xs.reshape(B, S, h, p)      # a strided view: the kernel takes it
-    a = -torch.exp(params["a_log"].float())
-    dt = softplus(dt_raw.float() + params["dt_bias"].float())
+    a = -torch.exp(_head_vector(params, "a_log"))
+    dt = softplus(dt_raw.float() + _head_vector(params, "dt_bias"))
 
     y, final_state = ssd_chunked(xs, dt, a, b_in, c_in, cfg.ssm_chunk,
                                  init_state=ssm_state)
-    y = y + xs.float() * params["d_skip"].float()[:, None]
+    y = y + xs.float() * _head_vector(params, "d_skip")[:, None]
     y = y.reshape(B, S, di).to(COMPUTE_DTYPE)
 
     # gated RMSNorm then out projection
-    y = rms_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params["norm"],
-                 cfg.norm_eps)
-    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+    y = rms_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE),
+                 partition.gather(params["norm"]), cfg.norm_eps)
+    out = y @ partition.wcast(params["out_proj"], COMPUTE_DTYPE,
+                              ("inner", "embed"))
     if return_state:
         return out, (new_conv.to(COMPUTE_DTYPE), final_state)
     return out
@@ -143,32 +161,33 @@ def mamba2_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
     B, d = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     conv_state, ssm_state = state
-    zxbcdt = x @ params["in_proj"].to(COMPUTE_DTYPE)
+    zxbcdt = x @ partition.wcast(params["in_proj"], COMPUTE_DTYPE,
+                                 ("embed", "inner"))
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
 
     # conv ring update
     hist = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
     new_conv = hist[:, 1:, :]
-    w = params["conv_w"].to(COMPUTE_DTYPE)
-    conv_out = (torch.sum(hist * w[None], dim=1)
-                + params["conv_b"].to(COMPUTE_DTYPE))
+    w, bias = conv_weights(params)
+    conv_out = torch.sum(hist * w[None], dim=1) + bias
     xbc = F.silu(conv_out.float()).to(COMPUTE_DTYPE)
 
     xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
     xs = xs.reshape(B, h, p)
-    a = -torch.exp(params["a_log"].float())
-    dt = softplus(dt_raw.float() + params["dt_bias"].float())        # [B, h]
+    a = -torch.exp(_head_vector(params, "a_log"))
+    dt = softplus(dt_raw.float() + _head_vector(params, "dt_bias"))  # [B, h]
 
     decay = torch.exp(dt * a)[..., None, None]                        # [B,h,1,1]
     upd = torch.einsum("bhp,bn->bhpn", xs.float() * dt[..., None],
                        b_in.float())
     new_ssm = ssm_state * decay + upd
     y = torch.einsum("bhpn,bn->bhp", new_ssm, c_in.float())
-    y = y + xs.float() * params["d_skip"].float()[:, None]
+    y = y + xs.float() * _head_vector(params, "d_skip")[:, None]
     y = y.reshape(B, di).to(COMPUTE_DTYPE)
-    y = rms_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params["norm"],
-                 cfg.norm_eps)
-    out = y @ params["out_proj"].to(COMPUTE_DTYPE)
+    y = rms_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE),
+                 partition.gather(params["norm"]), cfg.norm_eps)
+    out = y @ partition.wcast(params["out_proj"], COMPUTE_DTYPE,
+                              ("inner", "embed"))
     return out, (new_conv, new_ssm)
 
 

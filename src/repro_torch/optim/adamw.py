@@ -7,6 +7,10 @@ update` writes the new parameters and moments into the tensors it is given
 (under ``torch.no_grad``) where the reference returns new arrays, so a
 step holds one copy of the state, not two: at h2o-danube-1.8b's size the
 float32 parameters and both moments are some 22 GB.
+
+On ``DTensor`` parameters (``repro_torch.partition``) the moments inherit
+each parameter's placements and the count is replicated on its mesh; the
+update is the same arithmetic on each rank's shards.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch import partition
 
 
 class OptState(NamedTuple):
@@ -58,11 +64,15 @@ class AdamW:
 
     def init(self, params) -> OptState:
         zeros = pytree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
-        dev = pytree.tree_leaves(params)[0].device
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        first = pytree.tree_leaves(params)[0]
+        count = torch.zeros((), dtype=torch.int32, device=first.device)
+        if partition.is_dtensor(first):
+            from torch.distributed.tensor import Replicate, distribute_tensor
+            mesh = first.device_mesh
+            count = distribute_tensor(count, mesh, [Replicate()] * mesh.ndim)
         return OptState(m=zeros, v=pytree.tree_map(torch.clone, zeros),
-                        count=torch.zeros((), dtype=torch.int32, device=dev))
+                        count=count)
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params):

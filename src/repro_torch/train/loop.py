@@ -42,7 +42,16 @@ class LoopConfig:
     metrics_path: Optional[str] = None
 
 
+def _restore(store: CheckpointStore, state, shardings):
+    """``store.restore``: onto ``shardings`` where given, else onto the
+    placements ``state`` has."""
+    if shardings is None:
+        return store.restore(state)
+    return store.restore(state, shardings=shardings)
+
+
 def run_loop(step_fn: Callable, state, data, cfg: LoopConfig, *,
+             state_shardings=None,
              put_batch: Callable = None,
              failure_hook: Callable[[int], None] = None,
              log: Callable[[str], None] = print) -> Dict[str, Any]:
@@ -52,14 +61,17 @@ def run_loop(step_fn: Callable, state, data, cfg: LoopConfig, *,
     ``data.batch(step)`` supplies batches, ``put_batch`` (if given) moves
     one to the device; ``failure_hook(step)`` may raise to simulate a node
     failure.  Checkpoints go to a :class:`CheckpointStore` over
-    ``cfg.checkpoint_dir`` (none without one).  Returns the final state,
+    ``cfg.checkpoint_dir`` (none without one); ``state_shardings`` (a tree
+    of ``partition.Sharding``s congruent with ``state``) places every
+    restored leaf, for a restart on another mesh; without it a restore
+    keeps ``state``'s own placements.  Returns the final state,
     the losses of every step run (replayed steps included), the step
     numbers they belong to, and the straggler and recovery counts."""
     store = (CheckpointStore(cfg.checkpoint_dir, cfg.keep)
              if cfg.checkpoint_dir else None)
     start = 0
     if store is not None and store.latest_step() is not None:
-        state, restored = store.restore(state)
+        state, restored = _restore(store, state, state_shardings)
         start = restored + 1
         log(f"[loop] restored checkpoint {restored}, resuming at step {start}")
 
@@ -113,7 +125,8 @@ def run_loop(step_fn: Callable, state, data, cfg: LoopConfig, *,
                     f"({recoveries}/{cfg.max_recoveries})")
                 store.wait()   # a save in flight is the newest checkpoint
                 if store.latest_step() is not None:
-                    state, restored = store.restore(state)
+                    state, restored = _restore(store, state,
+                                               state_shardings)
                     step = restored + 1
                 else:
                     step = start  # nothing saved yet: restart from scratch

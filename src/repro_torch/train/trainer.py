@@ -1,14 +1,21 @@
 """Train and eval steps: gradient accumulation over strided microbatches,
 float32 gradient sums, optional int8-compressed gradients.
 
-Port of the JAX package's ``train/trainer.py`` on one card.  A step is a
-Python function of the state and a batch of tensors on the model's device:
+Port of the JAX package's ``train/trainer.py``.  A step is a Python
+function of the state and a batch of tensors on the model's device:
 autograd takes the gradient of ``Model.loss_fn`` (per-layer remat inside
 the model bounds the live activations to one microbatch and one layer) and
-:meth:`AdamW.update` applies it in place.  The reference's ``param_axes``
-(the logical axes that shard the gradient sums) has no twin until
-``partition.py`` is ported (ROADMAP.md Queue 1), nor has
-``make_state_axes``.
+:meth:`AdamW.update` applies it in place.
+
+Under ``partition`` rules the state is ``DTensor``s with the placements of
+:func:`make_state_axes`; each rank takes its shard of the global batch
+(``partition.shard_batch``), and its loss, divided by the number of ranks,
+is what it differentiates: the gathered weights send each rank's gradient
+back as a partial sum (``partition.wcast``), so the summed gradient is the
+mean over the batch shards: the whole batch's when every shard holds as
+many unmasked labels (a moe model's balance terms are whole-batch means,
+``partition.batch_mean``).  The loss in the metrics is that mean over the
+ranks.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import partition
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.optim.compression import compress_int8, decompress_int8
@@ -30,11 +38,26 @@ class TrainState(NamedTuple):
 
 
 def init_state(model: Model, optimizer: AdamW, seed: int = 0) -> TrainState:
-    """Parameters from ``seed`` on the model's device, zero moments."""
+    """Parameters from ``seed`` on the model's device, zero moments.  Under
+    rules the whole parameters are built from the seed as without them,
+    then distributed, so every value is the unsharded init's."""
     params = model.init(seed)
-    return TrainState(params=params, opt=optimizer.init(params),
-                      step=torch.zeros((), dtype=torch.int32,
-                                       device=model.device))
+    step = torch.zeros((), dtype=torch.int32, device=model.device)
+    rules = partition.current_rules()
+    if rules is not None:
+        axes = make_state_axes(model.param_axes())
+        params = partition.place(params,
+                                 partition.param_shardings(rules, axes.params))
+        step = partition.place(step, rules.sharding(axes.step))
+    return TrainState(params=params, opt=optimizer.init(params), step=step)
+
+
+def make_state_axes(param_axes):
+    """Logical-axes tree matching :func:`init_state`'s output: optimizer
+    moments inherit the parameter shardings, scalars are replicated."""
+    return TrainState(params=param_axes,
+                      opt=OptState(m=param_axes, v=param_axes, count=()),
+                      step=())
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], n: int):
@@ -53,7 +76,7 @@ def _microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 def make_train_step(model: Model, optimizer: AdamW, *,
                     microbatches: int = 1, remat: bool = True,
-                    compress_grads: bool = False):
+                    compress_grads: bool = False, param_axes=None):
     """The train step ``step(state, batch) -> (state, metrics)``.
 
     ``batch``: tensors (or arrays) of the data pipeline's keys.  With
@@ -61,31 +84,43 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     summed in float32 and divided by their count, as is the loss.
     ``compress_grads``: int8-quantize the gradients and dequantize them
     before the optimizer, carrying the squared quantization error in the
-    metrics as ``quant_err``.  The returned state holds the argument's
-    tensors, updated in place."""
+    metrics as ``quant_err``.  ``param_axes``: the parameters' logical-axes
+    tree (``model.param_axes()``); under rules the gradient tree is
+    constrained to it, as the reference constrains its gradient sums.  The
+    returned state holds the argument's tensors, updated in place."""
 
-    def grad_of(params, mb):
+    def constrain_grads(g):
+        if param_axes is None:
+            return g
+        return pytree.tree_map(partition.constrain, g, param_axes)
+
+    def grad_of(params, mb, ranks):
         leaves, spec = pytree.tree_flatten(params)
         live = [t.detach().requires_grad_() for t in leaves]
         loss, metrics = model.loss_fn(pytree.tree_unflatten(live, spec), mb,
                                       remat=remat)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss / ranks if ranks > 1 else loss, live)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             pytree.tree_unflatten(list(grads), spec)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
-        batch = {k: torch.as_tensor(v, device=model.device)
+        batch = {k: partition.shard_batch(torch.as_tensor(v,
+                                                          device=model.device))
                  for k, v in batch.items()}
+        rules = partition.current_rules()
+        ranks = 1 if rules is None else rules.mesh.size()
         if microbatches == 1:
-            loss, metrics, grads = grad_of(params, batch)
+            loss, metrics, grads = grad_of(params, batch, ranks)
+            grads = constrain_grads(grads)
         else:
             grads, lsum = None, 0.0
             for mb in _microbatches(batch, microbatches):
-                l, _, g = grad_of(params, mb)
+                l, _, g = grad_of(params, mb, ranks)
                 g = pytree.tree_map(lambda t: t.float(), g)
-                grads = g if grads is None else pytree.tree_map(
-                    torch.add, grads, g)
+                if grads is not None:
+                    g = pytree.tree_map(torch.add, grads, g)
+                grads = constrain_grads(g)
                 lsum = lsum + l
                 del g
             grads = pytree.tree_map(lambda g: g / microbatches, grads)
@@ -105,6 +140,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
 
         new_params, new_opt, opt_metrics = optimizer.update(
             grads, state.opt, params)
+        if ranks > 1:
+            loss = partition.mesh_sum(loss.clone()) / ranks
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
