@@ -137,7 +137,19 @@ without the final result line):
    launch counts of that path read around it; the state checkpointed and
    restored with ``shardings=`` onto the mesh, every leaf equal; the
    serve and step times with and without the mesh, beside the card's name
-   and power limit.
+   and power limit;
+17. dryrun — the dry-run (``launch/dryrun.py``) against the card:
+   ``torch.library.opcheck`` of the four model kernels' custom ops on real
+   inputs at danube's attention shape and mamba2-370m's SSD shape, and
+   the host time the dispatcher adds to a call; the card's memory size;
+   h2o-danube-1.8b's ``train_4k`` cell at B 4 (16,384 tokens) traced with
+   fake CUDA tensors on a fake (1, 1) mesh, no kernel launched, and the
+   same step run for real twice: under ``FlopCounterMode``, the FLOPs
+   equal op by op, then without it, the transient peak within 25% of the
+   trace's temporaries; the kernels' launches of each step exact; then the
+   cell on the 256-rank fake production mesh with its probes (ok, FLOPs,
+   collectives, live bytes, the reference's 4 microbatches), its record
+   written to ``results/dryrun/``.
 
 Each kernel check compares the normalised error, max |got - want| /
 (|want| + rms(want)), with its bar, and shows that the bar would catch the
@@ -347,6 +359,17 @@ TRAIN_SSM_ARCH, TRAIN_SSM_STEPS = "mamba2-370m", 5
 TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "recurrentgemma-2b",
                       "whisper-base", "internvl2-2b", "mamba2-370m")
 TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 4, 64
+# The dry-run's estimate against the card: h2o-danube-1.8b's train_4k cell
+# at B 4 (16,384 tokens a step, phase "train"'s count) traced on a fake
+# (1, 1) mesh and run for real; the step's transient peak within this
+# fraction of the trace's temporaries.
+DRYRUN_ROWS, DRYRUN_PEAK_BAR = 4, 0.25
+# The reference's microbatch count for h2o-danube-1.8b train_4k at 16 data
+# ranks (its choose_microbatches; tests/test_torch_dryrun.py holds the
+# port's equal to it cell by cell).
+DRYRUN_MICROBATCHES = 4
+# Calls a timing of the custom ops' dispatch makes back to back.
+OP_CALLS = 500
 
 # Float32 operations per task row of csrc/dvfs_opt.cu, counted from the
 # source with every add, subtract, multiply, divide, square root, min/max,
@@ -548,28 +571,18 @@ def max_rel(got, want) -> float:
     return ((g - w).abs().max() / w.abs().max()).item()
 
 
-def live_entries(S, sk, causal, window, prefix) -> int:
-    """Unmasked score entries of one head: S queries over ``sk`` keys,
-    keys below ``prefix`` visible to every query."""
-    live = 0
-    for q in range(S):
-        hi = min(q, sk - 1) if causal else sk - 1
-        lo = max(0, q - window + 1) if window else 0
-        band = max(0, hi - lo + 1)
-        pre = min(prefix, sk)
-        live += band + pre - max(0, min(pre - 1, hi) - lo + 1)
-    return live
-
-
 def attention_bound(B, H, KV, S, dh, causal, window, sk=None,
                     prefix=0) -> tuple:
     """Least time for attention over these shapes (``sk`` keys, S of them
     if None; keys below ``prefix`` visible to every query): the larger of
     the operations of the live (unmasked) score entries, 4 B H dh per entry
-    at the bf16 peak, and the bytes of q, k, v and o once each (bf16)."""
+    (``flash_attention.attention_flops``, whose count the kernel's FLOP
+    formula uses too) at the bf16 peak, and the bytes of q, k, v and o once
+    each (bf16)."""
+    from repro_torch.kernels.flash_attention import attention_flops
     sk = S if sk is None else sk
-    live = live_entries(S, sk, causal, window, prefix)
-    t_ops = 4.0 * B * H * dh * live / PEAK_BF16_OPS * 1e3
+    t_ops = (attention_flops(B, H, S, sk, dh, causal, window, prefix)
+             / PEAK_BF16_OPS * 1e3)
     t_bytes = 2.0 * B * dh * (2 * H * S + 2 * KV * sk) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -577,10 +590,13 @@ def attention_bound(B, H, KV, S, dh, causal, window, sk=None,
 def attention_bwd_bound(B, H, KV, S, dh, causal, window, sk, prefix) -> tuple:
     """Least time for the attention backward: the larger of five products
     over the live score entries (S and dP recomputed, dV, dK, dQ: 10 B H dh
-    per entry) at the bf16 peak, and the bytes of q, k, v, o, dO, dq, dk,
-    dv (bf16) and lse (float32) once each."""
-    live = live_entries(S, sk, causal, window, prefix)
-    t_ops = 10.0 * B * H * dh * live / PEAK_BF16_OPS * 1e3
+    per entry, ``flash_attention.attention_bwd_flops`` with
+    ``BWD_PRODUCTS``; the kernel computes seven) at the bf16 peak, and the
+    bytes of q, k, v, o, dO, dq, dk, dv (bf16) and lse (float32) once
+    each."""
+    from repro_torch.kernels import flash_attention as fa
+    t_ops = (fa.attention_bwd_flops(B, H, S, sk, dh, causal, window, prefix,
+                                    fa.BWD_PRODUCTS) / PEAK_BF16_OPS * 1e3)
     t_bytes = (2.0 * B * dh * (4 * H * S + 4 * KV * sk)
                + 4.0 * B * H * S) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -588,40 +604,30 @@ def attention_bwd_bound(B, H, KV, S, dh, causal, window, sk, prefix) -> tuple:
 
 def ssd_bound(B, S, H, P, N, q) -> tuple:
     """Least time for the SSD scan: the larger of the chunked products'
-    operations at the kernel's chunk q (intra-chunk on and below the
-    diagonal, C B^T once per chunk for all heads, the state term and the
-    state update) at the bf16 peak, and the bytes of x, dt, a, b, c in and
-    y and the f32 final state out."""
-    nc = -(-S // q)
-    tri = q * (q + 1) // 2
-    ops = (B * nc * 2 * tri * N                          # C B^T, shared
-           + B * H * nc * (2 * tri * P + 4 * q * N * P))  # M x, C s, update
+    operations at the kernel's chunk q (``ssd_scan.ssd_flops``) at the bf16
+    peak, and the bytes of x, dt, a, b, c in and y and the f32 final state
+    out."""
+    from repro_torch.kernels.ssd_scan import ssd_flops
     byts = (B * S * H * P * 2 * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2
             + B * H * P * N * 4)
-    t_ops = ops / PEAK_BF16_OPS * 1e3
+    t_ops = ssd_flops(B, S, H, P, N, q) / PEAK_BF16_OPS * 1e3
     t_bytes = byts / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def ssd_bwd_bound(B, S, H, P, N, q, init, dfinal) -> tuple:
     """Least time for the SSD backward: the larger of the operations of its
-    products at chunk q (the forward's C B^T and the state cotangent's
-    (exp(cum) dy)^T C, then per chunk and head dM = dy xd^T and M^T dy on
-    and below the diagonal, B G^T, C s^T, the state terms of dC and dB, and
-    dS B and dS^T C once per chunk for all heads) at the bf16 peak, and the
-    bytes of the function's own operands once each: x, dy, dt, a, b, c, the
-    initial state and the final state's cotangent where given in, dx, ddt,
-    da, db, dc and dinit (where there is an initial state) out.  What the
-    design moves besides (``ssd_bwd_design_bytes``) is not counted."""
-    nc = -(-S // q)
-    tri = q * (q + 1) // 2
-    ops = (B * nc * 2 * tri * N * 3            # C B^T, dS B, dS^T C
-           + B * H * nc * (2 * tri * P * 2      # dM, M^T dy
-                           + 2 * q * P * N * 5))  # G, B G^T, C s^T, dC, dB
+    products at chunk q (``ssd_scan.ssd_bwd_flops``) at the bf16 peak, and
+    the bytes of the function's own operands once each: x, dy, dt, a, b,
+    c, the initial state and the final state's cotangent where given in,
+    dx, ddt, da, db, dc and dinit (where there is an initial state) out.
+    What the design moves besides (``ssd_bwd_design_bytes``) is not
+    counted."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_flops
     byts = (B * S * H * P * 2 * 3 + B * S * H * 4 * 2 + H * 4 * 2
             + B * S * N * 2 * 4
             + B * H * P * N * 4 * (2 * bool(init) + bool(dfinal)))
-    t_ops = ops / PEAK_BF16_OPS * 1e3
+    t_ops = ssd_bwd_flops(B, S, H, P, N, q) / PEAK_BF16_OPS * 1e3
     t_bytes = byts / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1113,6 +1119,7 @@ def main(argv=None) -> int:
     train_ssm = train_mamba2_phase(checks, np, torch, dev, args.seed)
     train_families = train_families_phase(checks, torch, dev, args.seed)
     mesh = mesh_phase(checks, np, torch, dev, args.seed)
+    dry = dryrun_phase(checks, np, torch, dev, args.seed)
 
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
@@ -1147,7 +1154,10 @@ def main(argv=None) -> int:
         "serve": {arch: serve[arch] for arch, kernel, _ in SERVE_ARCHS
                   if kernel == "flash_attention"},
         "launches_train": train["launches"]["flash_attention"],
-        "launches_mesh": mesh["launches"]["flash_attention"]}, {
+        "launches_mesh": mesh["launches"]["flash_attention"],
+        "launches_dryrun": dry["launches"]["flash_attention"],
+        "opcheck": dry["opcheck"]["flash_attention"],
+        "dispatch_us": dry["opcheck"]["dispatch_us"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:96 (jax.grad of "
@@ -1156,13 +1166,18 @@ def main(argv=None) -> int:
         **attn_bwd["danube"], "shapes": attn_bwd, "train": train,
         "train_families": train_families,
         "launches_mesh": mesh["launches"]["flash_attention_bwd"],
-        "mesh": {k: v for k, v in mesh.items() if k != "split"}}, {
+        "mesh": {k: v for k, v in mesh.items() if k != "split"},
+        "launches_dryrun": dry["launches"]["flash_attention_bwd"],
+        "opcheck": dry["opcheck"]["flash_attention_bwd"],
+        "dryrun": {k: v for k, v in dry.items()
+                   if k not in ("launches", "opcheck")}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
         **ssd, **serve["mamba2-370m"], **ssd_pad,
         "launches_train": train_ssm["launches"]["ssd_scan"],
-        "fwd_states_ms": ssd_bwd["train"]["fwd_states_ms"]}, {
+        "fwd_states_ms": ssd_bwd["train"]["fwd_states_ms"],
+        "opcheck": dry["opcheck"]["ssd_scan"]}, {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/models/ssm.py:79 (jax.grad of ssd_chunked; "
@@ -1171,7 +1186,8 @@ def main(argv=None) -> int:
         **{k: v for k, v in ssd_bwd["train"].items()
            if k not in ("fwd_ms", "fwd_states_ms")},
         "max_abs_err": max(row["max_abs_err"] for row in ssd_bwd.values()),
-        "shapes": ssd_bwd, "train": train_ssm}]}),
+        "shapes": ssd_bwd, "train": train_ssm,
+        "opcheck": dry["opcheck"]["ssd_scan_bwd"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2757,6 +2773,240 @@ def mesh_phase(checks, np, torch, dev, seed: int) -> dict:
                              "decode": meshed["decode_s"]},
             "step_s": p_step, "step_mesh_s": m_step,
             "adamw_s": plain_update, "adamw_mesh_s": mesh_update}
+
+
+def opcheck_phase(checks, torch, dev, seed: int) -> dict:
+    """``torch.library.opcheck`` of the four model kernels' custom ops on
+    real CUDA inputs: danube's attention shape (the forward with its lse,
+    the backward from the forward's own output) and mamba2-370m's SSD shape
+    (the forward with its chunk states, the backward from them).  Each of
+    opcheck's tests on its own: the schema, the autograd registration, the
+    fake implementation against the launch (sizes, dtypes, strides) and an
+    AOT-autograd trace with dynamic shapes."""
+    B, S, H, KV, dh, _ = dict(ATTN_SHAPES)["serve"]
+    Bs, Ss, Hs, P, N = SSD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    q, k, v = rand(B, S, H, dh), rand(B, S, KV, dh), rand(B, S, KV, dh)
+    o, lse = torch.ops.repro_torch.flash_attention(q, k, v, True, None, 0,
+                                                   True)
+    x, b, c = rand(Bs, Ss, Hs, P), rand(Bs, Ss, N), rand(Bs, Ss, N)
+    dt = rand(Bs, Ss, Hs, dtype=torch.float32, scale=0.05).abs()
+    a = -torch.rand((Hs,), generator=gen, device=dev) - 0.5
+    states = torch.ops.repro_torch.ssd_scan(x, dt, a, b, c, None, True)[2]
+    cases = {
+        "flash_attention": (q, k, v, True, None, 0, True),
+        "flash_attention_bwd": (q, k, v, o, lse, rand(B, S, H, dh), True,
+                                None, 0),
+        "ssd_scan": (x, dt, a, b, c, None, True),
+        "ssd_scan_bwd": (x, dt, a, b, c, states, rand(Bs, Ss, Hs, P), None,
+                         False)}
+    utils = ("test_schema", "test_autograd_registration", "test_faketensor",
+             "test_aot_dispatch_dynamic")
+    out = {}
+    for name, args in cases.items():
+        res = {}
+        for util in utils:
+            r = torch.library.opcheck(getattr(torch.ops.repro_torch, name),
+                                      args, test_utils=util,
+                                      raise_exception=False)[util]
+            res[util] = r if r == "SUCCESS" else f"{type(r).__name__}: {r}"
+        out[name] = res
+        checks.expect(all(r == "SUCCESS" for r in res.values()),
+                      f"dryrun: opcheck of repro_torch::{name}: {res}")
+    torch.cuda.synchronize()
+    print("phase dryrun opcheck (danube's attention shape B 8 S 2048 H 32 "
+          "KV 8 dh 80, mamba2-370m's SSD shape B 8 S 2048 H 32 P 64 N 128): "
+          + "; ".join(f"{name} "
+                      + ", ".join(f"{u.removeprefix('test_')} {r}"
+                                  for u, r in res.items())
+                      for name, res in out.items()), flush=True)
+    del q, k, v, o, lse, x, b, c, dt, a, states, cases
+
+    # What the dispatcher adds to a call: the forward through the op and
+    # through its CUDA implementation called directly, at a shape so small
+    # that the host's work is the call's time; in turns.
+    from repro_torch.kernels import flash_attention as fa
+    q = rand(1, 64, 2, 64)
+    args = (q, q, q, True, None, 0, False)
+    times = {"op": [], "direct": []}
+    for name in ("op", "direct", "direct", "op", "op", "direct"):
+        fn = (torch.ops.repro_torch.flash_attention.default if name == "op"
+              else fa._flash_attention_launch)
+        fn(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(OP_CALLS):
+            fn(*args)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) / OP_CALLS * 1e6)
+    op_us, direct_us = (min(v) for v in (times["op"], times["direct"]))
+    out["dispatch_us"] = {"op": op_us, "direct": direct_us,
+                          "added": op_us - direct_us}
+    print(f"phase dryrun dispatch: the attention forward at B 1 S 64 H 2 "
+          f"dh 64, {OP_CALLS} calls back to back, best of 3: through the "
+          f"op {op_us:.2f} us a call, its implementation called directly "
+          f"{direct_us:.2f} us; the dispatcher adds {op_us - direct_us:.2f} "
+          "us a call", flush=True)
+    del q, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(checks, np, torch, dev, seed: int) -> dict:
+    """The dry-run (``launch/dryrun.py``) against the card: the custom ops
+    checked (:func:`opcheck_phase`); h2o-danube-1.8b's ``train_4k`` cell at
+    B 4 traced on a fake (1, 1) mesh and the same step run for real under
+    ``FlopCounterMode`` (FLOPs equal) and once more without it (its
+    transient peak within ``DRYRUN_PEAK_BAR`` of the trace's temporaries),
+    the kernels' launches read around each real step and none during the
+    trace; then the cell on the 256-rank fake production mesh with its
+    probes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    opcheck = opcheck_phase(checks, torch, dev, seed)
+    counters = kernel_counters()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    hbm = torch.cuda.get_device_properties(dev).total_memory
+    print(f"phase dryrun card: {smi}; total_memory {hbm} bytes "
+          f"({hbm / 2**30:.3f} GiB); dryrun.HBM_BYTES {dryrun.HBM_BYTES} "
+          f"(equal {hbm == dryrun.HBM_BYTES})", flush=True)
+
+    # The trace: nothing launched.
+    arch, shape = TRAIN_ARCH, "train_4k"
+    before = {name: fn.launches for name, fn in counters.items()}
+    t = time.perf_counter()
+    with fake_mesh((1, 1)) as mesh:
+        tr, _ = dryrun.trace_cell(arch, shape, mesh, batch_rows=DRYRUN_ROWS,
+                                  microbatches=1)
+    trace_s = time.perf_counter() - t
+    cap = dryrun.capture(tr)
+    traced = {name: fn.launches - before[name]
+              for name, fn in counters.items()}
+    checks.expect(not any(traced.values()),
+                  f"dryrun: the trace launched {traced}")
+
+    # The same step for real, its kernels counted around it.
+    cfg = registry.get_config(arch)
+    S = registry.SHAPES[shape].seq_len
+    model = Model(cfg, device=dev)
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 100, 10_000))
+    state = init_state(model, opt, seed)
+    step = make_train_step(model, opt, microbatches=1)
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (DRYRUN_ROWS, S)).astype(np.int32)).to(dev)
+        for k in ("tokens", "labels")}
+    def run(counter):
+        """One step, its kernels counted around it: (the step's transient
+        peak over what was allocated before it, seconds, launches, loss)."""
+        nonlocal state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        with counter:
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base,
+                time.perf_counter() - t,
+                {name: fn.launches for name, fn in counters.items()}, loss)
+
+    # The FLOPs from a step under the counter; the transient peak from the
+    # next step without it (under FlopCounterMode the card's step holds
+    # more, which a step run without the counter does not).
+    real = FlopCounterMode(display=False)
+    counted, step_s, launches, loss = run(real)
+    transient, plain_s, plain_launches, plain_loss = run(
+        contextlib.nullcontext())
+    base = torch.cuda.memory_allocated(dev)
+    del state, batch, model, step
+    torch.cuda.empty_cache()
+
+    L = cfg.n_layers
+    want = {"dvfs_opt": 0, "flash_attention": 2 * L,
+            "flash_attention_bwd": L, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    checks.expect(launches == want == plain_launches
+                  and math.isfinite(loss) and math.isfinite(plain_loss),
+                  f"dryrun: the real steps launched {launches} and "
+                  f"{plain_launches}, want {want}; losses {loss}, "
+                  f"{plain_loss}")
+    t_flops = tr.flops.get_flop_counts()["Global"]
+    r_flops = real.get_flop_counts()["Global"]
+    diff = {str(op): (t_flops.get(op, 0), r_flops.get(op, 0))
+            for op in set(t_flops) | set(r_flops)
+            if t_flops.get(op, 0) != r_flops.get(op, 0)}
+    traced_flops, real_flops = cap["cost"]["flops"], real.get_total_flops()
+    checks.expect(traced_flops == real_flops and not diff,
+                  f"dryrun: traced FLOPs {traced_flops} against the real "
+                  f"step's {real_flops}; op by op (trace, real) {diff}")
+    temp = cap["memory"]["temp_size_in_bytes"]
+    ratio = transient / temp
+    checks.expect(abs(ratio - 1.0) <= DRYRUN_PEAK_BAR,
+                  f"dryrun: the real step's transient peak {transient} bytes "
+                  f"against the trace's temporaries {temp}: ratio {ratio} "
+                  f"outside 1 +- {DRYRUN_PEAK_BAR}")
+    print(f"phase dryrun {arch} {shape} B {DRYRUN_ROWS} S {S} ({smi}): "
+          f"traced in {trace_s:.2f} s on a fake (1, 1) mesh, launches during "
+          f"the trace {traced}; FLOPs traced {traced_flops:.0f}, real step "
+          f"{real_flops:.0f} (equal {traced_flops == real_flops}; by op "
+          + ", ".join(f"{op} {n}" for op, n in sorted(
+              (str(k), v) for k, v in r_flops.items()))
+          + f"); transient peak {transient} bytes ({transient / 2**30:.3f} "
+          f"GiB) against the trace's temporaries {temp} ({temp / 2**30:.3f} "
+          f"GiB), ratio {ratio:.4f} (under the FLOP counter {counted} bytes, "
+          f"ratio {counted / temp:.4f}); arguments traced "
+          f"{cap['memory']['argument_size_in_bytes']} bytes, allocated "
+          f"after the steps {base}; real steps {step_s:.3f} s (counted), "
+          f"{plain_s:.3f} s, losses {loss:.6f}, {plain_loss:.6f}, launches "
+          f"{launches} each", flush=True)
+
+    # One production cell at full width and depth, with its probes.
+    t = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, "single",
+                          out_dir=str(ROOT / "results" / "dryrun"))
+    cell_s = time.perf_counter() - t
+    ok = rec["ok"] and rec["microbatches"] == DRYRUN_MICROBATCHES
+    full = rec.get("full", {})
+    checks.expect(ok and full["cost"]["flops"] > 0
+                  and full["collectives"]["n_collectives"] > 0
+                  and full["memory"]["live_bytes"] > 0,
+                  f"dryrun: {arch}/{shape}/single: ok {rec['ok']}, "
+                  f"microbatches {rec.get('microbatches')} (want "
+                  f"{DRYRUN_MICROBATCHES}), {rec.get('error')}")
+    if rec["ok"]:
+        mem = full["memory"]
+        print(f"phase dryrun cell {arch}/{shape}/single (256 ranks, "
+              f"{rec['device']} fake tensors): mb={rec['microbatches']} "
+              f"mem/dev={mem['live_bytes'] / 2**30:.2f}GiB of "
+              f"{hbm / 2**30:.2f} flops={full['cost']['flops']:.6g} "
+              f"coll={full['collectives']['n_collectives']} "
+              f"corrected flops {rec['corrected']['flops']:.6g}; traced in "
+              f"{rec['trace_s']} s, {cell_s:.2f} s with the probes", flush=True)
+    return {"opcheck": opcheck, "launches": launches, "card": smi,
+            "total_memory": hbm, "trace_s": trace_s, "flops": traced_flops,
+            "real_flops": real_flops, "transient_bytes": transient,
+            "temp_bytes": temp, "peak_ratio": ratio,
+            "counted_transient_bytes": counted, "real_step_s": plain_s,
+            "cell": {k: rec.get(k) for k in ("ok", "microbatches", "trace_s",
+                                             "full", "corrected", "error")},
+            "cell_s": cell_s}
 
 
 # Kernel names as the profiler shows them, per family kernel.

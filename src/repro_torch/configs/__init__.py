@@ -1,6 +1,15 @@
 """Assigned architecture configs (exact figures, copied from the JAX
-package); ``get_config(arch_id)`` returns the full :class:`ModelConfig`."""
+package) and the input-shape registry.
 
-from repro_torch.configs.registry import ARCHS, get_config
+``get_config(arch_id)`` returns the full :class:`ModelConfig`;
+``input_specs(arch, shape)`` returns the shape and dtype of every model
+input of a cell (``InputSpec``), which the dry-run turns into fake
+tensors.
+"""
 
-__all__ = ["ARCHS", "get_config"]
+from repro_torch.configs.registry import (ARCHS, SHAPES, CELLS,
+                                          cell_skip_reason, get_config,
+                                          input_specs, list_cells)
+
+__all__ = ["ARCHS", "SHAPES", "CELLS", "cell_skip_reason", "get_config",
+           "input_specs", "list_cells"]

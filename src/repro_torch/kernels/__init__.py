@@ -15,6 +15,10 @@
 Importing the package imports none of them, so the solver modules can
 import these lazily without a cycle.
 
+The model kernels are ``torch.library`` custom operators (namespace
+``repro_torch``) with fake implementations and FLOP formulas, so a
+``FakeTensorMode`` trace and ``FlopCounterMode`` see them.
+
 Kernels take plain local tensors: a ``DTensor`` (a sharded weight of
 ``repro_torch.partition``) that reaches a kernel wrapper raises instead of
 running the plain version's torch ops on it; gather it first
@@ -22,6 +26,12 @@ running the plain version's torch ops on it; gather it first
 """
 
 from repro_torch.partition import is_dtensor
+
+#: Device types whose tensors the model kernels' wrappers hand to their
+#: custom operators: the card's, where the operators launch the kernels,
+#: and ``meta``, where only the operators' fake implementations run (the
+#: dry-run traces on ``meta`` where torch is built without CUDA).
+OP_DEVICES = ("cuda", "meta")
 
 
 def refuse_dtensor(name: str, *tensors) -> None:

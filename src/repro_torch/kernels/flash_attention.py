@@ -47,8 +47,15 @@ The functions:
 * :class:`FlashAttention` — the ``torch.autograd.Function`` that joins the
   two kernels;
 * :func:`flash_attention_kernel` — the dispatcher: a CPU tensor goes to the
-  plain version (autograd differentiates it), a CUDA tensor to the kernels
-  (with the backward where grad is enabled), or an error.
+  plain version (autograd differentiates it), a CUDA or meta tensor to the
+  kernels (with the backward where grad is enabled), or an error;
+* ``torch.ops.repro_torch.flash_attention`` and ``flash_attention_bwd`` —
+  the two kernels as operators of torch's dispatcher, which the ``_cuda``
+  wrappers call: the launch on the card, a fake implementation for fake
+  and meta tensors (a ``FakeTensorMode`` trace) and a FLOP formula;
+* :func:`live_entries`, :func:`attention_flops`,
+  :func:`attention_bwd_flops` — the operation counts the FLOP formulas and
+  ``chip_smoke.py``'s bounds share.
 """
 
 from __future__ import annotations
@@ -56,9 +63,11 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build, refuse_dtensor
+from repro_torch.kernels import OP_DEVICES, build, refuse_dtensor
 
 NEG_INF = -1e30
 DEFAULT_CHUNK = 1024
@@ -82,6 +91,45 @@ def pad_head_dim(t: torch.Tensor, dh: int) -> torch.Tensor:
     when ``d == dh``)."""
     extra = dh - t.shape[-1]
     return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+
+#: products of 2 dh FLOPs per live score entry: the forward's (S = Q K^T,
+#: O = P V), the ones the gradient needs (S and dP recomputed, dV, dK, dQ)
+#: and the ones the backward kernel computes (its dQ kernel computes S and
+#: dP again)
+FWD_PRODUCTS, BWD_PRODUCTS, BWD_KERNEL_PRODUCTS = 2, 5, 7
+
+
+def live_entries(S: int, sk: int, causal: bool, window: Optional[int],
+                 prefix: int) -> int:
+    """Unmasked score entries of one head: S queries over ``sk`` keys
+    (causal and/or a sliding ``window``), keys below ``prefix`` visible to
+    every query."""
+    q = np.arange(S, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(S, sk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
+    band = np.maximum(0, hi - lo + 1)
+    pre = min(prefix, sk)
+    both = np.maximum(0, np.minimum(pre - 1, hi) - lo + 1)
+    return int((band + pre - both).sum())
+
+
+def attention_flops(B: int, H: int, S: int, sk: int, dh: int, causal: bool,
+                    window: Optional[int], prefix: int,
+                    products: int = FWD_PRODUCTS) -> int:
+    """FLOPs of ``products`` products of 2 dh each over the live score
+    entries of B H heads.  The masked entries of the tiles the kernels visit
+    on a mask's edge are computed but not counted."""
+    return 2 * products * B * H * dh * live_entries(S, sk, causal, window,
+                                                    prefix)
+
+
+def attention_bwd_flops(B: int, H: int, S: int, sk: int, dh: int,
+                        causal: bool, window: Optional[int], prefix: int,
+                        products: int = BWD_KERNEL_PRODUCTS) -> int:
+    """:func:`attention_flops` of the backward: the kernel's seven products
+    by default, :data:`BWD_PRODUCTS` for what the gradient needs."""
+    return attention_flops(B, H, S, sk, dh, causal, window, prefix, products)
 
 
 def pick_chunk(s: int, chunk: int) -> Tuple[int, int]:
@@ -322,7 +370,10 @@ def _bwd_library():
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                    fn: str = "flash_attention_cuda"):
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+    """Device, dtype, rank and strides of one operand; its base address is
+    the launch's to check (:func:`_check_base`), as a fake tensor has
+    none."""
+    if not isinstance(t, torch.Tensor) or t.device.type not in OP_DEVICES:
         raise ValueError(f"{fn} takes CUDA tensors; {name} is "
                          f"on {getattr(t, 'device', type(t).__name__)}")
     if t.device != device:
@@ -334,17 +385,26 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                          f"{tuple(t.shape)}")
     # 16-byte loads of 8 bf16 along dh: unit dh stride, other strides whole
     # 16-byte steps, 16-byte aligned base.
-    if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
-            or t.data_ptr() % 16):
+    if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
         raise ValueError(f"{fn}: {name} needs a unit head-dim stride, other "
                          "strides multiples of 8 elements and a 16-byte "
                          f"aligned base; got strides {t.stride()}")
 
 
+def _check_base(fn: str, **named):
+    """Raise unless every tensor of ``named`` starts 16-byte aligned."""
+    for name, t in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} needs a unit head-dim stride, "
+                             "other strides multiples of 8 elements and a "
+                             f"16-byte aligned base; got base "
+                             f"{t.data_ptr():#x}")
+
+
 def _check_shapes(q, k, v, window, prefix, fn: str):
     """Validate q, k, v and the mask arguments; returns (B, Sq, H, dh, Sk,
     KV, the compiled dh)."""
-    if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
+    if not isinstance(q, torch.Tensor) or q.device.type not in OP_DEVICES:
         raise ValueError(f"{fn} takes CUDA tensors; q is on "
                          f"{getattr(q, 'device', type(q).__name__)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -363,66 +423,9 @@ def _check_shapes(q, k, v, window, prefix, fn: str):
     return B, Sq, H, dh, Sk, KV, kernel_head_dim(dh)
 
 
-def _strides(*tensors) -> ctypes.Array:
-    return (ctypes.c_int64 * (3 * len(tensors)))(
-        *(s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))))
-
-
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, window: Optional[int] = None,
-                         prefix: int = 0, return_lse: bool = False):
-    """Launch ``csrc/flash_attention.cu`` on bfloat16 CUDA tensors q
-    ``[B, Sq, H, dh]``, k/v ``[B, Sk, KV, dh]`` (any strides with a unit
-    head-dim stride), keys below ``prefix`` visible to every query.  Returns
-    the output with q's shape (q's strides where dh is compiled, else a
-    slice of the padded output), still being computed on the current
-    stream; with ``return_lse`` also the row log-sum-exp [B, H, Sq] float32
-    that :func:`flash_attention_bwd_cuda` takes.  Builds the kernel with
-    ``nvcc`` at first use.  Raises on any other input, a dh above 256
-    included, and if the launch is refused."""
-    B, Sq, H, dh, Sk, KV, dk = _check_shapes(q, k, v, window, prefix,
-                                             "flash_attention_cuda")
-    scale = float(dh ** -0.5)     # the real dh's, whatever the padding
-    q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
-    out = torch.empty_like(q)   # q's strides where q is dense
-    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    if out.numel() == 0:
-        return (out[..., :dh], lse) if return_lse else out[..., :dh]
-    lib = _library()
-    shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dk)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), shape,
-            _strides(q, k, v, out), int(bool(causal)), int(window or 0),
-            int(prefix), scale, stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.flash_attention_error_string(rc).decode())
-    flash_attention_cuda.launches += 1
-    out = out[..., :dh] if dk != dh else out
-    return (out, lse) if return_lse else out
-
-
-flash_attention_cuda.launches = 0
-
-
-def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, o: torch.Tensor,
-                             lse: torch.Tensor, do: torch.Tensor, *,
-                             causal: bool, window: Optional[int] = None,
-                             prefix: int = 0):
-    """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels: dQ with
-    the row terms delta and lse, then dK/dV) on bfloat16 CUDA tensors: q,
-    k, v as :func:`flash_attention_cuda` takes them, o and do shaped as q,
-    lse the forward's [B, H, Sq] float32.  Returns (dq, dk, dv) shaped as q, k, v,
-    still being computed on the current stream.  Zero-pads a dh that is not
-    compiled, as the forward does.  Counts one launch per call in
-    ``flash_attention_bwd_cuda.launches``.  Raises on any other input and
-    if a launch is refused."""
-    fn = "flash_attention_bwd_cuda"
+def _check_bwd(q, k, v, o, lse, do, window, prefix, fn: str):
+    """:func:`_check_shapes` and the backward's own operands o, do and
+    lse; returns what it returns."""
     B, Sq, H, dh, Sk, KV, dk = _check_shapes(q, k, v, window, prefix, fn)
     for name, t in (("o", o), ("do", do)):
         _check_operand(name, t, q.device, fn)
@@ -434,11 +437,106 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError(f"{fn}: lse must be a contiguous float32 [B, H, Sq] "
                          f"= {(B, H, Sq)} tensor on {q.device}")
+    return B, Sq, H, dh, Sk, KV, dk
+
+
+def _strides(*tensors) -> ctypes.Array:
+    return (ctypes.c_int64 * (3 * len(tensors)))(
+        *(s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))))
+
+
+# ---------------------------------------------------------------------------
+# The kernels as operators of torch's dispatcher (``torch.library``,
+# namespace ``repro_torch``).  Each has a CUDA implementation (the launch),
+# a fake one (the outputs' sizes, dtypes and strides, from the same
+# allocation code, for FakeTensorMode and meta tensors) and a FLOP formula
+# (``torch.utils.flop_counter``).  The wrappers below check the operands
+# and call them; the dispatcher then sees every launch.  They are defined
+# with ``Library.define`` rather than ``custom_op``, whose Python autograd
+# layer costs several times the dispatch on every call; autograd is the
+# ``FlashAttention`` Function's.
+# ---------------------------------------------------------------------------
+
+LIBRARY = torch.library.Library("repro_torch", "FRAGMENT")
+LIBRARY.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+               "int? window, int prefix, bool return_lse) -> (Tensor, Tensor)")
+LIBRARY.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+               "Tensor lse, Tensor do, bool causal, int? window, int prefix) "
+               "-> (Tensor, Tensor, Tensor)")
+
+
+def _fwd_outputs(q: torch.Tensor, dh: int, return_lse: bool):
+    """The forward's outputs as the launch allocates them, from q padded to
+    the compiled dh: the output (q's strides where q is dense; its first
+    ``dh`` columns, a view, where dh was padded) and the row log-sum-exp
+    [B, H, Sq] float32, or an empty tensor without ``return_lse``."""
+    B, Sq, H, dk = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq) if return_lse else (0,),
+                      dtype=torch.float32, device=q.device)
+    return out, (out[..., :dh] if dk != dh else out), lse
+
+
+def _flash_attention_launch(q, k, v, causal, window, prefix, return_lse):
+    """``repro_torch::flash_attention`` on the card: the launch, on
+    operands :func:`flash_attention_cuda` has checked."""
+    fn = "flash_attention_cuda"
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dk = kernel_head_dim(dh)
+    _check_base(fn, q=q, k=k, v=v)
+    scale = float(dh ** -0.5)     # the real dh's, whatever the padding
+    q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
+    buf, out, lse = _fwd_outputs(q, dh, return_lse)
+    if buf.numel() == 0:
+        return out, lse
+    lib = _library()
+    shape = (ctypes.c_int64 * 6)(B, H, KV, Sq, Sk, dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+            lse.data_ptr() if return_lse else None, shape,
+            _strides(q, k, v, buf), int(bool(causal)), int(window or 0),
+            int(prefix), scale, stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(rc).decode())
+    flash_attention_cuda.launches += 1
+    return out, lse
+
+
+def _flash_attention_fake(q, k, v, causal, window, prefix, return_lse):
+    _, _, _, dh, _, _, dk = _check_shapes(q, k, v, window, prefix,
+                                          "flash_attention_cuda")
+    return _fwd_outputs(pad_head_dim(q, dk), dh, return_lse)[1:]
+
+
+def _bwd_outputs(q, k, v, dh: int):
+    """The backward's (dq, dk, dv) buffers as the launch allocates them,
+    from q, k, v padded to the compiled dh, and the gradients returned:
+    their first ``dh`` columns where dh was padded."""
+    bufs = tuple(torch.empty_like(t) for t in (q, k, v))
+    if q.shape[-1] != dh:
+        return bufs, tuple(t[..., :dh] for t in bufs)
+    return bufs, bufs
+
+
+def _flash_attention_bwd_launch(q, k, v, o, lse, do, causal, window, prefix):
+    """``repro_torch::flash_attention_bwd`` on the card: the two launches,
+    on operands :func:`flash_attention_bwd_cuda` has checked."""
+    fn = "flash_attention_bwd_cuda"
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dk = kernel_head_dim(dh)
+    _check_base(fn, q=q, k=k, v=v, o=o, do=do)
     scale = float(dh ** -0.5)
     q, k, v, o, do = (pad_head_dim(t, dk) for t in (q, k, v, o, do))
-    dq, dkey, dval = (torch.empty_like(t) for t in (q, k, v))
+    (dq, dkey, dval), grads = _bwd_outputs(q, k, v, dh)
     if q.numel() == 0 or k.numel() == 0:
-        return tuple(t[..., :dh].zero_() for t in (dq, dkey, dval))
+        for t in grads:
+            t.zero_()
+        return grads
     lib = _bwd_library()
     scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, H, Sq),
                           dtype=torch.float32, device=q.device)
@@ -455,9 +553,83 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError("flash_attention backward kernel launch failed: "
                            + lib.flash_attention_bwd_error_string(rc).decode())
     flash_attention_bwd_cuda.launches += 1
-    if dk != dh:
-        return dq[..., :dh], dkey[..., :dh], dval[..., :dh]
-    return dq, dkey, dval
+    return grads
+
+
+def _flash_attention_bwd_fake(q, k, v, o, lse, do, causal, window, prefix):
+    _, _, _, dh, _, _, dk = _check_bwd(q, k, v, o, lse, do, window, prefix,
+                                       "flash_attention_bwd_cuda")
+    return _bwd_outputs(*(pad_head_dim(t, dk) for t in (q, k, v)), dh)[1]
+
+
+LIBRARY.impl("flash_attention", _flash_attention_launch, "CUDA")
+LIBRARY.impl("flash_attention_bwd", _flash_attention_bwd_launch, "CUDA")
+torch.library.register_fake("repro_torch::flash_attention",
+                            _flash_attention_fake, lib=LIBRARY)
+torch.library.register_fake("repro_torch::flash_attention_bwd",
+                            _flash_attention_bwd_fake, lib=LIBRARY)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flop(q, k, v, causal, window, prefix, return_lse, *args,
+                          **kwargs) -> int:
+    """FLOPs of one forward launch: :func:`attention_flops` at the compiled
+    dh (what the kernel computes)."""
+    B, Sq, H, dh = q
+    return attention_flops(B, H, Sq, k[1], kernel_head_dim(dh), causal,
+                           window, prefix)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_attention_bwd_flop(q, k, v, o, lse, do, causal, window, prefix,
+                              *args, **kwargs) -> int:
+    """FLOPs of one backward call: :func:`attention_bwd_flops` with the
+    kernel's seven products at the compiled dh."""
+    B, Sq, H, dh = q
+    return attention_bwd_flops(B, H, Sq, k[1], kernel_head_dim(dh), causal,
+                               window, prefix)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: Optional[int] = None,
+                         prefix: int = 0, return_lse: bool = False):
+    """Launch ``csrc/flash_attention.cu`` (the op ``repro_torch::
+    flash_attention``) on bfloat16 CUDA tensors q ``[B, Sq, H, dh]``, k/v
+    ``[B, Sk, KV, dh]`` (any strides with a unit head-dim stride), keys
+    below ``prefix`` visible to every query.  Returns the output with q's
+    shape (q's strides where dh is compiled, else a slice of the padded
+    output), still being computed on the current stream; with
+    ``return_lse`` also the row log-sum-exp [B, H, Sq] float32 that
+    :func:`flash_attention_bwd_cuda` takes.  Builds the kernel with
+    ``nvcc`` at first use.  Raises on any other input, a dh above 256
+    included, and if the launch is refused.  A fake or meta tensor runs
+    the op's fake implementation: shapes only, nothing launched."""
+    _check_shapes(q, k, v, window, prefix, "flash_attention_cuda")
+    out, lse = torch.ops.repro_torch.flash_attention.default(
+        q, k, v, bool(causal), window, int(prefix), bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool, window: Optional[int] = None,
+                             prefix: int = 0):
+    """Launch ``csrc/flash_attention_bwd.cu`` (the op ``repro_torch::
+    flash_attention_bwd``: its two kernels, dQ with the row terms delta and
+    lse, then dK/dV) on bfloat16 CUDA tensors: q, k, v as
+    :func:`flash_attention_cuda` takes them, o and do shaped as q, lse the
+    forward's [B, H, Sq] float32.  Returns (dq, dk, dv) shaped as q, k, v,
+    still being computed on the current stream.  Zero-pads a dh that is not
+    compiled, as the forward does.  Counts one launch per call in
+    ``flash_attention_bwd_cuda.launches``.  Raises on any other input and
+    if a launch is refused."""
+    _check_bwd(q, k, v, o, lse, do, window, prefix, "flash_attention_bwd_cuda")
+    return torch.ops.repro_torch.flash_attention_bwd.default(
+        q, k, v, o, lse, do, bool(causal), window, int(prefix))
 
 
 flash_attention_bwd_cuda.launches = 0
@@ -466,9 +638,11 @@ flash_attention_bwd_cuda.launches = 0
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels take it: itself when its strides and base suit
     16-byte loads, else a contiguous copy (a gradient autograd hands over
-    may be any view)."""
-    if (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0):
+    may be any view).  A fake or meta tensor has no base: its strides
+    decide."""
+    from torch._subclasses.fake_tensor import is_fake
+    based = t.device.type == "meta" or is_fake(t) or t.data_ptr() % 16 == 0
+    if t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1]) and based:
         return t
     return t.contiguous()
 
@@ -507,13 +681,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiates it), a CUDA tensor by the CUDA kernel (its own tiles;
     ``chunk`` does not change the function): through :class:`FlashAttention`
     and its backward kernel where grad is enabled and an input requires
-    it, else the forward alone.  A DTensor input raises."""
+    it, else the forward alone.  A meta tensor takes the kernels' custom ops
+    as a CUDA tensor does, which run their fake implementations.  A DTensor
+    input raises."""
     refuse_dtensor("flash_attention_kernel", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk,
                                      bidirectional_prefix=bidirectional_prefix)
-    if q.device.type == "cuda":
+    if q.device.type in OP_DEVICES:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window,

@@ -28,18 +28,27 @@ from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 SHARD_MIN_ROWS = 4096
 
 
+def faking() -> bool:
+    """True while a ``FakeTensorMode`` is active: tensors made then are
+    fake, so nothing is allocated and no kernel is launched."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 def resolve_device(device=None) -> torch.device:
     """THE ``device=`` policy of every solving entry point: ``None`` is the
-    CUDA card; a CUDA device without CUDA, or ``None`` without it, raises.
-    Pass ``device="cpu"`` to run the plain versions on the host."""
+    CUDA card; a CUDA device without CUDA, or ``None`` without it, raises,
+    except while a ``FakeTensorMode`` is active (a trace: the dry-run
+    allocates and launches nothing).  Pass ``device="cpu"`` to run the
+    plain versions on the host."""
     if device is None:
-        if not torch.cuda.is_available():
+        if not torch.cuda.is_available() and not faking():
             raise RuntimeError(
                 "no CUDA device: the port runs on the card by default; pass "
                 "device='cpu' to run the plain torch versions on the host")
         return torch.device("cuda")
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and not faking():
         raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
                            "available")
     return dev

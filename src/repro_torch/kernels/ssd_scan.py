@@ -36,8 +36,9 @@ The forward is computed by:
   which the backward reads.  It counts its launches in
   ``ssd_scan_cuda.launches``;
 * :func:`ssd_scan_kernel` — the dispatcher: a CPU tensor goes to the plain
-  version (autograd differentiates it), a CUDA tensor to the kernel, through
-  :class:`SSDScan` where it needs a gradient (or an error).
+  version (autograd differentiates it), a CUDA or meta tensor to the
+  kernel, through :class:`SSDScan` where it needs a gradient (or an
+  error).
 
 The gradient, with the final state's cotangent, which the JAX package takes
 with ``jax.grad`` of ``ssd_chunked`` (it has no Pallas backward), by:
@@ -51,6 +52,11 @@ with ``jax.grad`` of ``ssd_chunked`` (it has no Pallas backward), by:
   ``ssd_scan_bwd_cuda.launches``, one per call;
 * :class:`SSDScan` — the ``torch.autograd.Function`` that runs the forward
   kernel with its chunk states and the backward kernel.
+
+Both kernels are operators of torch's dispatcher,
+``torch.ops.repro_torch.ssd_scan`` and ``ssd_scan_bwd`` (the launch, a
+fake implementation, a FLOP formula from :func:`ssd_flops` /
+:func:`ssd_bwd_flops`), which the ``_cuda`` wrappers call.
 """
 
 from __future__ import annotations
@@ -59,9 +65,10 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build, refuse_dtensor
-from repro_torch.kernels.flash_attention import _aligned
+from repro_torch.kernels import OP_DEVICES, build, refuse_dtensor
+from repro_torch.kernels.flash_attention import LIBRARY, _aligned
 
 #: the CUDA kernel's chunk length (csrc kQ)
 KERNEL_CHUNK = 64
@@ -355,7 +362,10 @@ def _bwd_library():
 
 def _check(fn: str, name: str, t: torch.Tensor, device: torch.device,
            dtype, dims: int, vector_rows: bool):
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+    """Device, dtype, rank and, for a tensor read in 16-byte vectors along
+    its last axis, strides; the base address is the launch's to check
+    (:func:`_check_aligned`), as a fake tensor has none."""
+    if not isinstance(t, torch.Tensor) or t.device.type not in OP_DEVICES:
         raise ValueError(f"{fn} takes CUDA tensors; {name} is on "
                          f"{getattr(t, 'device', type(t).__name__)}")
     if t.device != device:
@@ -367,8 +377,8 @@ def _check(fn: str, name: str, t: torch.Tensor, device: torch.device,
                          f"{tuple(t.shape)}")
     # x, b, c and dy are read 8 bf16 (16 bytes) at a time along their last
     # axis.
-    if vector_rows and (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
-                        or t.data_ptr() % 16):
+    if vector_rows and (t.stride(-1) != 1
+                        or any(s % 8 for s in t.stride()[:-1])):
         raise ValueError(f"{fn}: {name} needs a unit last stride, other "
                          "strides multiples of 8 elements and a 16-byte "
                          f"aligned base; got strides {t.stride()}")
@@ -376,9 +386,10 @@ def _check(fn: str, name: str, t: torch.Tensor, device: torch.device,
 
 def _check_aligned(fn: str, name: str, t: torch.Tensor, align: int = 16):
     """Raise unless ``t``'s first element sits at a multiple of ``align``
-    bytes: the backward moves the chunk states by bulk copies of 512-byte
-    rows and reads dfinal in 8-byte pairs, and neither takes a view that
-    starts elsewhere (nothing is copied to fix it)."""
+    bytes: x, b, c and dy are read in 16-byte vectors, the backward moves
+    the chunk states by bulk copies of 512-byte rows and reads dfinal in
+    8-byte pairs, and none takes a view that starts elsewhere (nothing is
+    copied to fix it)."""
     if t.data_ptr() % align:
         raise ValueError(f"{fn}: {name} must start at a {align}-byte "
                          f"aligned address, got {t.data_ptr():#x} (a view "
@@ -388,7 +399,7 @@ def _check_aligned(fn: str, name: str, t: torch.Tensor, align: int = 16):
 def _check_operands(fn: str, x, dt, a, b, c, init_state):
     """The checks both wrappers make of the forward's operands; returns
     (B, S, H, P, N)."""
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+    if not isinstance(x, torch.Tensor) or x.device.type not in OP_DEVICES:
         raise ValueError(f"{fn} takes CUDA tensors; x is on "
                          f"{getattr(x, 'device', type(x).__name__)}")
     dev = x.device
@@ -413,38 +424,99 @@ def _check_operands(fn: str, x, dt, a, b, c, init_state):
     return B, S, H, P, N
 
 
-def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                  b: torch.Tensor, c: torch.Tensor,
-                  init_state: Optional[torch.Tensor] = None, *,
-                  states: bool = False):
-    """Launch ``csrc/ssd_scan.cu``: x ``[B, S, H, P]`` and b/c ``[B, S, N]``
-    bfloat16 (any strides with a unit last stride: the model passes slices
-    of the conv output), dt ``[B, S, H]`` and a ``[H]`` float32,
-    ``init_state`` ``[B, H, P, N]`` float32 or None (zeros); P up to 64 and
-    N up to 128 (smaller ones run zero-padded).  Returns ``(y [B, S, H, P]
-    bf16, final_state [B, H, P, N] f32)``, still being computed on the
-    current stream (slices of the padded outputs where P or N was padded).
-    With ``states`` the kernel's other instantiation also writes the
-    float32 state entering each chunk of :data:`KERNEL_CHUNK` tokens, which
-    the backward reads, and the result gains it as a third entry: ``[B,
-    n_chunks(S), H, KERNEL_P, KERNEL_N]``, in the padded shape the backward
-    takes.  Builds the kernel with ``nvcc`` at first use.  Raises on any
-    other input, and if the launch is refused."""
+def _check_bwd(fn: str, x, dt, a, b, c, states, dy, dfinal):
+    """:func:`_check_operands` and the backward's own operands; returns
+    (B, S, H, P, N)."""
+    B, S, H, P, N = _check_operands(fn, x, dt, a, b, c, None)
+    dev = x.device
+    _check(fn, "dy", dy, dev, torch.bfloat16, 4, True)
+    if dy.shape != x.shape:
+        raise ValueError(f"{fn}: dy {tuple(dy.shape)} must be shaped as x "
+                         f"{tuple(x.shape)}")
+    want = (B, n_chunks(S), H, KERNEL_P, KERNEL_N)
+    if (not isinstance(states, torch.Tensor) or states.device != dev
+            or states.dtype != torch.float32 or states.shape != want
+            or not states.is_contiguous()):
+        raise ValueError(f"{fn}: states must be the forward's contiguous "
+                         f"float32 {want} chunk states on {dev}")
+    if dfinal is not None:
+        _check(fn, "dfinal", dfinal, dev, torch.float32, 4, False)
+        if dfinal.shape != (B, H, P, N):
+            raise ValueError(f"{fn}: dfinal {tuple(dfinal.shape)} is not "
+                             f"[B, H, P, N] = {(B, H, P, N)}")
+    return B, S, H, P, N
+
+
+# ---------------------------------------------------------------------------
+# The kernels as operators of torch's dispatcher: a CUDA implementation (the
+# launch), a fake one (the outputs' sizes, dtypes and strides from the same
+# allocation code) and a FLOP formula each, as in ``flash_attention.py``.
+# ---------------------------------------------------------------------------
+
+LIBRARY.define("ssd_scan(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
+               "Tensor? init_state, bool states) -> (Tensor, Tensor, Tensor)")
+LIBRARY.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, "
+               "Tensor c, Tensor states, Tensor dy, Tensor? dfinal, "
+               "bool round_g) -> (Tensor, Tensor, Tensor, Tensor, Tensor, "
+               "Tensor)")
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int,
+              q: int = KERNEL_CHUNK) -> int:
+    """FLOPs of the SSD scan's chunked products at chunk q: intra-chunk on
+    and below the diagonal, C B^T once per chunk for all heads, the state
+    term C s and the state update (2 per multiply-add)."""
+    nc = -(-S // q)
+    tri = q * (q + 1) // 2
+    return (B * nc * 2 * tri * N                          # C B^T, shared
+            + B * H * nc * (2 * tri * P + 4 * q * N * P))  # M x, C s, update
+
+
+def ssd_bwd_flops(B: int, S: int, H: int, P: int, N: int,
+                  q: int = KERNEL_CHUNK) -> int:
+    """FLOPs of the SSD backward's products at chunk q: the forward's C B^T
+    and, per chunk, dS B and dS^T C once for all heads; per chunk and head
+    dM = dy xd^T and M^T dy on and below the diagonal, and the state
+    cotangent, B G^T, C s^T and the state terms of dC and dB."""
+    nc = -(-S // q)
+    tri = q * (q + 1) // 2
+    return (B * nc * 2 * tri * N * 3            # C B^T, dS B, dS^T C
+            + B * H * nc * (2 * tri * P * 2      # dM, M^T dy
+                            + 2 * q * P * N * 5))  # G, B G^T, C s^T, dC, dB
+
+
+def _fwd_outputs(B: int, S: int, H: int, P: int, N: int, states: bool,
+                 device):
+    """The forward's buffers as the launch allocates them, at the compiled
+    (P, N): y [B, S, H, KERNEL_P] bf16, the final state [B, H, KERNEL_P,
+    KERNEL_N] f32 and the chunk states [B, n_chunks(S), H, KERNEL_P,
+    KERNEL_N] f32 (empty without ``states``); and the outputs: y and the
+    final state sliced to (P, N) where they were padded, the chunk states
+    as they are."""
+    y = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=device)
+    final = torch.empty((B, H, KERNEL_P, KERNEL_N), dtype=torch.float32,
+                        device=device)
+    chunk_states = torch.empty(
+        (B, n_chunks(S), H, KERNEL_P, KERNEL_N) if states else (0,),
+        dtype=torch.float32, device=device)
+    if (P, N) != (KERNEL_P, KERNEL_N):
+        return (y, final), (y[..., :P], final[:, :, :P, :N], chunk_states)
+    return (y, final), (y, final, chunk_states)
+
+
+def _ssd_scan_launch(x, dt, a, b, c, init_state, states):
+    """``repro_torch::ssd_scan`` on the card: the launch, on operands
+    :func:`ssd_scan_cuda` has checked."""
     fn = "ssd_scan_cuda"
-    B, S, H, P, N = _check_operands(fn, x, dt, a, b, c, init_state)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        _check_aligned(fn, name, t)
     dev = x.device
     x, b, c, init_state = pad_shape(x, b, c, init_state)
     if init_state is not None:
         init_state = init_state.contiguous()
-    y = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=dev)
-    final = torch.empty((B, H, KERNEL_P, KERNEL_N), dtype=torch.float32,
-                        device=dev)
-    chunk_states = (torch.empty((B, n_chunks(S), H, KERNEL_P, KERNEL_N),
-                                dtype=torch.float32, device=dev)
-                    if states else None)
-    out = (y[..., :P], final[:, :, :P, :N]) if (P, N) != (
-        KERNEL_P, KERNEL_N) else (y, final)
-    out = out + (chunk_states,) if states else out
+    (y, final), out = _fwd_outputs(B, S, H, P, N, states, dev)
     if y.numel() == 0:
         final.copy_(init_state if init_state is not None else 0.0)
         return out
@@ -463,13 +535,153 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             c.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
             y.data_ptr(), final.data_ptr(),
-            chunk_states.data_ptr() if states else None, shape, strides,
+            out[2].data_ptr() if states else None, shape, strides,
             stream)
     if rc != 0:
         raise RuntimeError("ssd_scan kernel launch failed: "
                            + lib.ssd_scan_error_string(rc).decode())
     ssd_scan_cuda.launches += 1
     return out
+
+
+def _ssd_scan_fake(x, dt, a, b, c, init_state, states):
+    B, S, H, P, N = _check_operands("ssd_scan_cuda", x, dt, a, b, c,
+                                    init_state)
+    return _fwd_outputs(B, S, H, P, N, states, x.device)[1]
+
+
+def _bwd_outputs(B: int, S: int, H: int, P: int, N: int, device):
+    """The backward's buffers as the launch allocates them, at the compiled
+    (P, N): dx, ddt, da's per-(batch, chunk) partials, db, dc and dinit."""
+    f32 = dict(dtype=torch.float32, device=device)
+    dx = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=device)
+    ddt = torch.empty((B, S, H), **f32)
+    da_part = torch.empty((B, n_chunks(S), H), **f32)
+    db, dc = (torch.empty((B, S, KERNEL_N), dtype=torch.bfloat16,
+                          device=device) for _ in range(2))
+    dinit = torch.empty((B, H, KERNEL_P, KERNEL_N), **f32)
+    return dx, ddt, da_part, db, dc, dinit
+
+
+def _bwd_result(P: int, N: int, dx, ddt, da_part, db, dc, dinit):
+    """(dx, ddt, da, db, dc, dinit) from the buffers: da summed over batch
+    and chunks, the rest sliced to (P, N) where they were padded."""
+    da = da_part.sum(dim=(0, 1))
+    if (P, N) != (KERNEL_P, KERNEL_N):
+        return (dx[..., :P], ddt, da, db[..., :N], dc[..., :N],
+                dinit[:, :, :P, :N])
+    return dx, ddt, da, db, dc, dinit
+
+
+def _ssd_scan_bwd_launch(x, dt, a, b, c, states, dy, dfinal, round_g):
+    """``repro_torch::ssd_scan_bwd`` on the card: the two launches, on
+    operands :func:`ssd_scan_bwd_cuda` has checked."""
+    fn = "ssd_scan_bwd_cuda"
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    for name, t in (("x", x), ("b", b), ("c", c), ("dy", dy),
+                    ("states", states)):
+        _check_aligned(fn, name, t)
+    dev = x.device
+    x, b, c, dfinal = pad_shape(x, b, c, dfinal)
+    if P < KERNEL_P:
+        dy = torch.nn.functional.pad(dy, (0, KERNEL_P - P))
+    if dfinal is not None:
+        dfinal = dfinal.contiguous()
+        _check_aligned(fn, "dfinal", dfinal)
+    bufs = _bwd_outputs(B, S, H, P, N, dev)
+    dx, ddt, da_part, db, dc, dinit = bufs
+    if dx.numel() == 0:
+        for t in (dx, ddt, da_part, db, dc):
+            t.zero_()
+        dinit.copy_(dfinal if dfinal is not None else 0.0)
+        return _bwd_result(P, N, *bufs)
+    # the state cotangents, kernel 1 -> 2
+    ds = torch.empty(states.shape, dtype=torch.float32, device=dev)
+    a = a.contiguous()
+    lib = _bwd_library()
+    shape = (ctypes.c_int64 * 5)(B, S, H, KERNEL_P, KERNEL_N)
+    strides = (ctypes.c_int64 * 13)(
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+        dy.stride(0), dy.stride(1), dy.stride(2))
+    args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            dfinal.data_ptr() if dfinal is not None else None,
+            ds.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            da_part.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            dinit.data_ptr(), shape, strides)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if round_g:
+            rc = lib.ssd_scan_bwd_launch_parts(*args, stream, 1)
+            ds.copy_(ds.bfloat16())
+            rc = rc or lib.ssd_scan_bwd_launch_parts(*args, stream, 2)
+        else:
+            rc = lib.ssd_scan_bwd_launch(*args, stream)
+    if rc != 0:
+        raise RuntimeError("ssd_scan backward kernel launch failed: "
+                           + lib.ssd_scan_bwd_error_string(rc).decode())
+    ssd_scan_bwd_cuda.launches += 1
+    return _bwd_result(P, N, *bufs)
+
+
+def _ssd_scan_bwd_fake(x, dt, a, b, c, states, dy, dfinal, round_g):
+    B, S, H, P, N = _check_bwd("ssd_scan_bwd_cuda", x, dt, a, b, c, states,
+                               dy, dfinal)
+    return _bwd_result(P, N, *_bwd_outputs(B, S, H, P, N, x.device))
+
+
+LIBRARY.impl("ssd_scan", _ssd_scan_launch, "CUDA")
+LIBRARY.impl("ssd_scan_bwd", _ssd_scan_bwd_launch, "CUDA")
+torch.library.register_fake("repro_torch::ssd_scan", _ssd_scan_fake,
+                            lib=LIBRARY)
+torch.library.register_fake("repro_torch::ssd_scan_bwd", _ssd_scan_bwd_fake,
+                            lib=LIBRARY)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_scan_flop(x, dt, a, b, c, init_state, states, *args,
+                   **kwargs) -> int:
+    """FLOPs of one forward launch: :func:`ssd_flops` at the compiled (P,
+    N) and chunk (what the kernel computes)."""
+    B, S, H, _ = x
+    return ssd_flops(B, S, H, KERNEL_P, KERNEL_N)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _ssd_scan_bwd_flop(x, dt, a, b, c, states, dy, dfinal, round_g, *args,
+                       **kwargs) -> int:
+    """FLOPs of one backward call: :func:`ssd_bwd_flops` at the compiled
+    (P, N) and chunk."""
+    B, S, H, _ = x
+    return ssd_bwd_flops(B, S, H, KERNEL_P, KERNEL_N)
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor,
+                  init_state: Optional[torch.Tensor] = None, *,
+                  states: bool = False):
+    """Launch ``csrc/ssd_scan.cu`` (the op ``repro_torch::ssd_scan``): x
+    ``[B, S, H, P]`` and b/c ``[B, S, N]``
+    bfloat16 (any strides with a unit last stride: the model passes slices
+    of the conv output), dt ``[B, S, H]`` and a ``[H]`` float32,
+    ``init_state`` ``[B, H, P, N]`` float32 or None (zeros); P up to 64 and
+    N up to 128 (smaller ones run zero-padded).  Returns ``(y [B, S, H, P]
+    bf16, final_state [B, H, P, N] f32)``, still being computed on the
+    current stream (slices of the padded outputs where P or N was padded).
+    With ``states`` the kernel's other instantiation also writes the
+    float32 state entering each chunk of :data:`KERNEL_CHUNK` tokens, which
+    the backward reads, and the result gains it as a third entry: ``[B,
+    n_chunks(S), H, KERNEL_P, KERNEL_N]``, in the padded shape the backward
+    takes.  Builds the kernel with ``nvcc`` at first use.  Raises on any
+    other input, and if the launch is refused.  A fake or meta tensor runs
+    the op's fake implementation: shapes only, nothing launched."""
+    _check_operands("ssd_scan_cuda", x, dt, a, b, c, init_state)
+    y, final, chunk_states = torch.ops.repro_torch.ssd_scan.default(
+        x, dt, a, b, c, init_state, bool(states))
+    return (y, final, chunk_states) if states else (y, final)
 
 
 ssd_scan_cuda.launches = 0
@@ -479,7 +691,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor, c: torch.Tensor, states: torch.Tensor,
                       dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None,
                       *, round_g: bool = False):
-    """Launch ``csrc/ssd_scan_bwd.cu`` (its two kernels: the state
+    """Launch ``csrc/ssd_scan_bwd.cu`` (the op ``repro_torch::ssd_scan_bwd``:
+    its two kernels, the state
     cotangent chunk by chunk from the last, then every chunk's gradients):
     x, dt, a, b, c as :func:`ssd_scan_cuda` takes them, ``states`` the
     chunk states ``ssd_scan_cuda(..., states=True)`` wrote for them, dy
@@ -498,76 +711,9 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cotangents the first kernel hands the second are rounded to bf16 in
     between (the two kernels launched apart), which is what storing them in
     bf16 would cost in accuracy."""
-    fn = "ssd_scan_bwd_cuda"
-    B, S, H, P, N = _check_operands(fn, x, dt, a, b, c, None)
-    dev = x.device
-    _check(fn, "dy", dy, dev, torch.bfloat16, 4, True)
-    if dy.shape != x.shape:
-        raise ValueError(f"{fn}: dy {tuple(dy.shape)} must be shaped as x "
-                         f"{tuple(x.shape)}")
-    nc = n_chunks(S)
-    want = (B, nc, H, KERNEL_P, KERNEL_N)
-    if (not isinstance(states, torch.Tensor) or states.device != dev
-            or states.dtype != torch.float32 or states.shape != want
-            or not states.is_contiguous()):
-        raise ValueError(f"{fn}: states must be the forward's contiguous "
-                         f"float32 {want} chunk states on {dev}")
-    _check_aligned(fn, "states", states)
-    if dfinal is not None:
-        _check(fn, "dfinal", dfinal, dev, torch.float32, 4, False)
-        if dfinal.shape != (B, H, P, N):
-            raise ValueError(f"{fn}: dfinal {tuple(dfinal.shape)} is not "
-                             f"[B, H, P, N] = {(B, H, P, N)}")
-    x, b, c, dfinal = pad_shape(x, b, c, dfinal)
-    if P < KERNEL_P:
-        dy = torch.nn.functional.pad(dy, (0, KERNEL_P - P))
-    if dfinal is not None:
-        dfinal = dfinal.contiguous()
-        _check_aligned(fn, "dfinal", dfinal)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((B, S, H, KERNEL_P), dtype=torch.bfloat16, device=dev)
-    ddt = torch.empty((B, S, H), **f32)
-    da_part = torch.empty((B, nc, H), **f32)
-    db, dc = (torch.empty((B, S, KERNEL_N), dtype=torch.bfloat16, device=dev)
-              for _ in range(2))
-    dinit = torch.empty((B, H, KERNEL_P, KERNEL_N), **f32)
-    if dx.numel() == 0:
-        for t in (dx, ddt, da_part, db, dc):
-            t.zero_()
-        dinit.copy_(dfinal if dfinal is not None else 0.0)
-    else:
-        ds = torch.empty(want, **f32)   # the state cotangents, kernel 1 -> 2
-        a = a.contiguous()
-        lib = _bwd_library()
-        shape = (ctypes.c_int64 * 5)(B, S, H, KERNEL_P, KERNEL_N)
-        strides = (ctypes.c_int64 * 13)(
-            x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-            dy.stride(0), dy.stride(1), dy.stride(2))
-        args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                c.data_ptr(), states.data_ptr(), dy.data_ptr(),
-                dfinal.data_ptr() if dfinal is not None else None,
-                ds.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-                da_part.data_ptr(), db.data_ptr(), dc.data_ptr(),
-                dinit.data_ptr(), shape, strides)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            if round_g:
-                rc = lib.ssd_scan_bwd_launch_parts(*args, stream, 1)
-                ds.copy_(ds.bfloat16())
-                rc = rc or lib.ssd_scan_bwd_launch_parts(*args, stream, 2)
-            else:
-                rc = lib.ssd_scan_bwd_launch(*args, stream)
-        if rc != 0:
-            raise RuntimeError("ssd_scan backward kernel launch failed: "
-                               + lib.ssd_scan_bwd_error_string(rc).decode())
-        ssd_scan_bwd_cuda.launches += 1
-    da = da_part.sum(dim=(0, 1))
-    if (P, N) != (KERNEL_P, KERNEL_N):
-        return (dx[..., :P], ddt, da, db[..., :N], dc[..., :N],
-                dinit[:, :, :P, :N])
-    return dx, ddt, da, db, dc, dinit
+    _check_bwd("ssd_scan_bwd_cuda", x, dt, a, b, c, states, dy, dfinal)
+    return torch.ops.repro_torch.ssd_scan_bwd.default(
+        x, dt, a, b, c, states, dy, dfinal, bool(round_g))
 
 
 ssd_scan_bwd_cuda.launches = 0
@@ -608,11 +754,12 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     CUDA tensor by the CUDA kernel with its own :data:`KERNEL_CHUNK` (the
     same function): through :class:`SSDScan` and its backward kernel where
     grad is enabled and an input requires it, else the forward alone.  A
-    DTensor input raises."""
+    meta tensor takes the kernel's custom ops as a CUDA tensor does, which
+    run their fake implementations.  A DTensor input raises."""
     refuse_dtensor("ssd_scan_kernel", x, dt, a, b, c, init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk, init_state)
-    if x.device.type == "cuda":
+    if x.device.type in OP_DEVICES:
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad
                 for t in (x, dt, a, b, c, init_state)):

@@ -7,7 +7,9 @@ are float32 (:data:`PARAM_DTYPE`); every matrix is cast to bfloat16
 (:data:`COMPUTE_DTYPE`) where it is used, by ``partition.wcast`` as in the
 reference (under rules it also gathers a sharded weight).  Each parameter
 is created with its logical axes; :class:`AxesBuilder` builds the axes
-tree of the same layout without allocating anything.
+tree of the same layout without allocating anything, and
+:class:`ShapeBuilder` its tensors without values (fake under a
+``FakeTensorMode``, the twin of ``jax.eval_shape(model.init)``).
 """
 
 from __future__ import annotations
@@ -66,6 +68,22 @@ class AxesBuilder:
         if len(shape) != len(axes):
             raise ValueError(f"shape {shape} annotated with {axes}")
         return tuple(axes)
+
+
+class ShapeBuilder:
+    """A :class:`ParamBuilder` whose ``param`` returns an uninitialised
+    ``torch.empty`` of the parameter's shape and dtype on ``device``, with
+    no generator: under a ``FakeTensorMode`` a fake tensor, which allocates
+    nothing (``Model.param_shapes``)."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+
+    def param(self, shape: Tuple[int, ...], axes: Tuple,
+              init: str = "normal", scale: float = 0.02) -> torch.Tensor:
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} annotated with {axes}")
+        return torch.empty(shape, dtype=PARAM_DTYPE, device=self.device)
 
 
 #: Matrices the forward reads in float32, which a serving copy keeps so: the

@@ -52,9 +52,9 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, AxesBuilder,
-                                       ParamBuilder, Params, embed_lookup,
-                                       init_mlp, layer_norm, mlp, rms_norm,
-                                       sinusoidal_positions)
+                                       ParamBuilder, Params, ShapeBuilder,
+                                       embed_lookup, init_mlp, layer_norm,
+                                       mlp, rms_norm, sinusoidal_positions)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 CE_CHUNK = 512  # sequence chunk for the checkpointed cross-entropy
@@ -170,6 +170,13 @@ class Model:
         if self._paxes is None:
             self._paxes = self._build(AxesBuilder())
         return self._paxes
+
+    def param_shapes(self) -> Params:
+        """:meth:`init`'s parameters without values: ``torch.empty`` of
+        each shape and dtype on the model's device, fake under a
+        ``FakeTensorMode`` (the dry-run's twin of ``jax.eval_shape(
+        model.init)``)."""
+        return self._build(ShapeBuilder(self.device))
 
     def _build(self, b) -> Params:
         cfg = self.cfg

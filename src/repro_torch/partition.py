@@ -276,16 +276,20 @@ def param_shardings(rules: Optional[Rules], axes_tree: Any):
     return pytree.tree_map(rules.sharding, axes_tree, is_leaf=is_axes)
 
 
-def place(tree: Any, shardings: Any):
+def place(tree: Any, shardings: Any, *, local: bool = False):
     """``tree`` with each tensor leaf distributed to its :class:`Sharding`
     in the congruent tree ``shardings`` (matched by key; a None leaf keeps
-    its tensor); every rank passes the whole tensor."""
+    its tensor); every rank passes the whole tensor, and rank 0's values
+    are sent to every rank.  With ``local`` each rank cuts its shard from
+    its own tensor and nothing is sent (a trace's fake tensors)."""
     from torch.distributed.tensor import distribute_tensor
+    src = None if local else 0
 
     def one(t, s):
         if s is None:
             return t
-        return distribute_tensor(t, s.mesh, list(s.placements))
+        return distribute_tensor(t, s.mesh, list(s.placements),
+                                 src_data_rank=src)
 
     return pytree.tree_map(one, tree, shardings)
 

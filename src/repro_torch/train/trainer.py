@@ -52,6 +52,23 @@ def init_state(model: Model, optimizer: AdamW, seed: int = 0) -> TrainState:
     return TrainState(params=params, opt=optimizer.init(params), step=step)
 
 
+def init_state_shapes(model: Model, optimizer: AdamW) -> TrainState:
+    """:func:`init_state`'s state without values, for a trace: the
+    parameters of ``Model.param_shapes`` and the moments as
+    ``zeros_like`` (fake under a ``FakeTensorMode``).  Under rules each
+    leaf is this rank's shard as a ``DTensor``, cut locally with no
+    collective."""
+    params = model.param_shapes()
+    step = torch.zeros((), dtype=torch.int32, device=model.device)
+    rules = partition.current_rules()
+    if rules is not None:
+        axes = make_state_axes(model.param_axes())
+        params = partition.place(
+            params, partition.param_shardings(rules, axes.params), local=True)
+        step = partition.place(step, rules.sharding(axes.step), local=True)
+    return TrainState(params=params, opt=optimizer.init(params), step=step)
+
+
 def make_state_axes(param_axes):
     """Logical-axes tree matching :func:`init_state`'s output: optimizer
     moments inherit the parameter shardings, scalars are replicated."""

@@ -144,13 +144,28 @@ def test_new_cuda_wrappers_refuse_host_tensors(which):
 
 
 def test_dispatchers_refuse_other_devices():
-    q = torch.zeros((1, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no flash_attention"):
-        flash_attention.flash_attention_kernel(q, q, q, causal=True)
-    x = torch.zeros((1, 8, 2, 16), device="meta")
-    b = torch.zeros((1, 8, 4), device="meta")
-    with pytest.raises(ValueError, match="no ssd_scan"):
-        ssd_scan.ssd_scan_kernel(x, x[..., 0], x[0, 0, :, 0], b, b, 8)
+    """A meta tensor takes the kernels' custom ops, whose fake
+    implementations give the shapes (the dry-run's trace); any device but
+    the CPU, the card and meta raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device="meta")
+    assert flash_attention.flash_attention_kernel(
+        q, q, q, causal=True).shape == q.shape
+    x = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device="meta")
+    b = torch.zeros((1, 8, 8), dtype=torch.bfloat16, device="meta")
+    dt = torch.zeros((1, 8, 2), device="meta")
+    y, final = ssd_scan.ssd_scan_kernel(x, dt, dt[0, 0], b, b, 8)
+    assert y.shape == x.shape and final.shape == (1, 2, 16, 8)
+    with FakeTensorMode():
+        q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device="mps")
+        with pytest.raises(ValueError, match="no flash_attention"):
+            flash_attention.flash_attention_kernel(q, q, q, causal=True)
+        x = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device="mps")
+        b = torch.zeros((1, 8, 8), dtype=torch.bfloat16, device="mps")
+        dt = torch.zeros((1, 8, 2), device="mps")
+        with pytest.raises(ValueError, match="no ssd_scan"):
+            ssd_scan.ssd_scan_kernel(x, dt, torch.zeros(2, device="mps"), b,
+                                     b, 8)
 
 
 def test_kernel_tags_name_the_device():

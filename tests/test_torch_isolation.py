@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no file of it (nor ``chip_smoke.py``, ``dvfs_opt_probe.py``
-or ``attention_ab.py``) imports them."""
+package, and no file of it (nor ``chip_smoke.py``, ``dvfs_opt_probe.py``,
+``attention_ab.py`` or ``wrapper_ab.py``) imports them."""
 
 import json
 import os
@@ -31,6 +31,7 @@ import repro_torch.launch.energy_sched, repro_torch.launch.train
 import repro_torch.optim.adamw, repro_torch.optim.compression
 import repro_torch.data.pipeline, repro_torch.checkpoint.store
 import repro_torch.train.trainer, repro_torch.train.loop
+import repro_torch.partition, repro_torch.launch.mesh, repro_torch.launch.dryrun
 mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
 print(json.dumps(mods))
@@ -48,7 +49,7 @@ def test_import_loads_no_jax_and_no_reference():
 def _sources():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
     return files + [ROOT / "chip_smoke.py", ROOT / "dvfs_opt_probe.py",
-                    ROOT / "attention_ab.py"]
+                    ROOT / "attention_ab.py", ROOT / "wrapper_ab.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -71,7 +72,8 @@ def test_port_mirrors_the_reference_tree():
                 "models/attention.py", "models/ssm.py", "models/model.py",
                 "launch/serve.py", "launch/train.py", "optim/adamw.py",
                 "optim/compression.py", "data/pipeline.py",
-                "checkpoint/store.py", "train/trainer.py", "train/loop.py"):
+                "checkpoint/store.py", "train/trainer.py", "train/loop.py",
+                "partition.py", "launch/mesh.py", "launch/dryrun.py"):
         assert (ROOT / "src" / "repro" / rel).exists()
         assert (PORT / rel).exists()
     for cfg in (ROOT / "src" / "repro" / "configs").glob("*.py"):
