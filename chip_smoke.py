@@ -149,7 +149,25 @@ without the final result line):
    trace's temporaries; the kernels' launches of each step exact; then the
    cell on the 256-rank fake production mesh with its probes (ok, FLOPs,
    collectives, live bytes, the reference's 4 microbatches), its record
-   written to ``results/dryrun/``.
+   written to ``results/dryrun/``;
+18. tp — the model axis split over ranks (``partition.py``'s tensor and
+   expert parallelism): with two or more cards one rank a card over NCCL
+   on a (1, n) mesh (n 2 or 4), with one card two processes on it over
+   gloo (``DTensor``'s functional collectives routed through the process
+   group's own calls, ``install_gloo_cuda_collectives``), after a probe
+   of ``all_reduce``, ``all_gather`` and ``broadcast`` on CUDA tensors.
+   h2o-danube-1.8b and mamba2-370m at full width and depth, each served
+   under ``serve_rules`` with the serve phase's requests (the whole
+   prefill's logits within the serve phase's 1e-1 of max of one rank's,
+   the first decode position where the greedy tokens differ printed) and
+   stepped once under ``fsdp_rules`` (danube on 4 rows, mamba2 on 8, of
+   2,048 tokens: loss rel 2e-3, grad norm 2e-2, every gradient leaf at
+   cosine >= 0.99 of rank 0's one-rank step); each rank's kernel launches
+   exact, at H / n attention heads (KV / n kv heads) and H_ssm / n SSD
+   heads; times beside the card's name and power limit.  Without a
+   working two-rank transport, rank 0's share alone: the kernels at the
+   local shapes of a (1, 2) and a (1, 4) split against their plain
+   versions.
 
 Each kernel check compares the normalised error, max |got - want| /
 (|want| + rms(want)), with its bar, and shows that the bar would catch the
@@ -370,6 +388,16 @@ DRYRUN_ROWS, DRYRUN_PEAK_BAR = 4, 0.25
 DRYRUN_MICROBATCHES = 4
 # Calls a timing of the custom ops' dispatch makes back to back.
 OP_CALLS = 500
+# Phase "tp": (architecture, rows of its training step), served with the
+# serve phase's requests; danube's step cut to 4 rows so that two ranks and
+# rank 0's one-rank reference share one card's 80 GB.  Every gradient leaf
+# at this cosine with the one-rank step's (tests/test_torch_train.py's bar),
+# and the phase's deadline.
+TP_TRAIN = (("h2o-danube-1.8b", 4), ("mamba2-370m", 8))
+TP_LEAF_COS = 0.99
+#: How many of the lowest leaf cosines phase "tp" prints, by name.
+TP_LOWEST = 3
+TP_TIMEOUT_S = 600
 
 # Float32 operations per task row of csrc/dvfs_opt.cu, counted from the
 # source with every add, subtract, multiply, divide, square root, min/max,
@@ -1120,6 +1148,7 @@ def main(argv=None) -> int:
     train_families = train_families_phase(checks, torch, dev, args.seed)
     mesh = mesh_phase(checks, np, torch, dev, args.seed)
     dry = dryrun_phase(checks, np, torch, dev, args.seed)
+    tp = tp_phase(checks, np, torch, dev, args.seed)
 
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed",
@@ -1156,6 +1185,8 @@ def main(argv=None) -> int:
         "launches_train": train["launches"]["flash_attention"],
         "launches_mesh": mesh["launches"]["flash_attention"],
         "launches_dryrun": dry["launches"]["flash_attention"],
+        "launches_tp": [r["flash_attention"] for r in tp.get("launches", [])],
+        "tp": tp,
         "opcheck": dry["opcheck"]["flash_attention"],
         "dispatch_us": dry["opcheck"]["dispatch_us"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1166,6 +1197,8 @@ def main(argv=None) -> int:
         **attn_bwd["danube"], "shapes": attn_bwd, "train": train,
         "train_families": train_families,
         "launches_mesh": mesh["launches"]["flash_attention_bwd"],
+        "launches_tp": [r["flash_attention_bwd"]
+                        for r in tp.get("launches", [])],
         "mesh": {k: v for k, v in mesh.items() if k != "split"},
         "launches_dryrun": dry["launches"]["flash_attention_bwd"],
         "opcheck": dry["opcheck"]["flash_attention_bwd"],
@@ -1176,6 +1209,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:33",
         **ssd, **serve["mamba2-370m"], **ssd_pad,
         "launches_train": train_ssm["launches"]["ssd_scan"],
+        "launches_tp": [r["ssd_scan"] for r in tp.get("launches", [])],
         "fwd_states_ms": ssd_bwd["train"]["fwd_states_ms"],
         "opcheck": dry["opcheck"]["ssd_scan"]}, {
         "name": "ssd_scan_bwd", "route": "cuda",
@@ -1183,6 +1217,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/models/ssm.py:79 (jax.grad of ssd_chunked; "
                     "no Pallas backward)",
         "launches": train_ssm["launches"]["ssd_scan_bwd"],
+        "launches_tp": [r["ssd_scan_bwd"] for r in tp.get("launches", [])],
         **{k: v for k, v in ssd_bwd["train"].items()
            if k not in ("fwd_ms", "fwd_states_ms")},
         "max_abs_err": max(row["max_abs_err"] for row in ssd_bwd.values()),
@@ -3036,6 +3071,526 @@ def device_split(events, symbol: str) -> tuple:
     top = "; ".join(f"{key} {ms:.3f} ms x{n}"
                     for ms, n, key in sorted(rest, reverse=True)[:5])
     return {name: tuple(v) for name, v in split.items()}, top
+
+
+# ---------------------------------------------------------------------------
+# Phase "tp": the model axis split over ranks.
+# ---------------------------------------------------------------------------
+
+
+def install_gloo_cuda_collectives(torch):
+    """Route ``DTensor``'s functional collectives on CUDA tensors through
+    the process group's own calls, for gloo ranks that share one card.
+    Gloo runs ``all_reduce``, ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` on CUDA tensors, but the functional
+    ``all_gather_into_tensor`` that ``DTensor`` issues ends its process
+    with SIGSEGV there (torch 2.11, probed on an H100); NCCL, the backend
+    of one rank a card, refuses two ranks on one card.  The replacements
+    are synchronous and return the collective's result."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}
+
+    def all_gather(x, group_size, group_name):
+        out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    def reduce_scatter(x, op, group_size, group_name):
+        out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), op=ops[op],
+                                   group=_resolve_process_group(group_name))
+        return out
+
+    def all_reduce(x, op, group_name):
+        out = x.clone()
+        dist.all_reduce(out, op=ops[op],
+                        group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    lib.impl("reduce_scatter_tensor", reduce_scatter, "CUDA")
+    lib.impl("all_reduce", all_reduce, "CUDA")
+    return lib
+
+
+def tp_probe(torch, dev, world: int) -> dict:
+    """``all_reduce`` (sum, max, min), ``all_gather`` and ``broadcast`` of
+    CUDA tensors over the default group, each checked."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    x = torch.full((1024,), float(rank + 1), device=dev)
+    out = {}
+    for name, op, want in (("all_reduce_sum", dist.ReduceOp.SUM,
+                            world * (world + 1) / 2),
+                           ("all_reduce_max", dist.ReduceOp.MAX, world),
+                           ("all_reduce_min", dist.ReduceOp.MIN, 1)):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        out[name] = bool((y == want).all())
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    out["all_gather"] = [float(t[0]) for t in parts] == [
+        float(r + 1) for r in range(world)]
+    y = x.clone()
+    dist.broadcast(y, 0)
+    out["broadcast"] = bool((y == 1).all())
+    _sync(torch, dev)
+    return out
+
+
+class _TPShapes:
+    """Records the q shapes of the attention kernel's calls and the x
+    shapes of the SSD kernel's while entered (host side, no launch)."""
+
+    def __enter__(self):
+        from repro_torch.models import attention, ssm
+        self.attn, self.ssd = set(), set()
+        self._saved = (attention.flash_attention_kernel, ssm.ssd_scan_kernel)
+        attn_fn, ssd_fn = self._saved
+
+        def attn(q, k, v, **kw):
+            self.attn.add((tuple(q.shape), tuple(k.shape)))
+            return attn_fn(q, k, v, **kw)
+
+        def ssd(x, *args, **kw):
+            self.ssd.add(tuple(x.shape))
+            return ssd_fn(x, *args, **kw)
+
+        attention.flash_attention_kernel = attn
+        ssm.ssd_scan_kernel = ssd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, ssm
+        attention.flash_attention_kernel, ssm.ssd_scan_kernel = self._saved
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _tp_serve(torch, np, dev, arch: str, preset: str, seed: int,
+              rules) -> dict:
+    """``arch`` at full width served under ``rules`` (None: one rank):
+    ``Server.run``'s tokens and times, and its prefill's logits of the
+    real vocab (``Model.whole_logits``, read by wrapping the model's
+    ``prefill``)."""
+    from repro_torch import partition
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models.model import Model
+    cfg = preset_config(arch, preset)
+    model = Model(cfg, device=dev)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    max_seq = SERVE_PROMPT + SERVE_GEN + 8
+    with partition.use_rules(rules):
+        params = model.init(seed)
+        if rules is not None:
+            params = partition.place(params, partition.param_shardings(
+                rules, model.param_axes()))
+        srv = Server(model, params, SERVE_REQUESTS, max_seq=max_seq,
+                     device=dev)
+        del params
+        seen = []
+        prefill = model.prefill
+
+        def recording(*args, **kw):
+            logits, cache = prefill(*args, **kw)
+            seen.append(model.whole_logits(logits)[:, :cfg.vocab_size]
+                        .float().cpu())
+            return logits, cache
+
+        model.prefill = recording
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=SERVE_GEN)
+                for i in range(SERVE_REQUESTS)]
+        stats = srv.run(reqs)
+        repeats = {} if rules is None else dict(rules.repeats)
+    del srv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"logits": seen[0], "tokens": [r.out for r in reqs],
+            "repeats": repeats, **stats}
+
+
+class _GradSpy:
+    """An optimizer that hands every gradient leaf, whole, with its path
+    in the tree, to ``see`` (every rank gathers each leaf in the same
+    order), then updates as ``opt`` does."""
+
+    def __init__(self, opt, see):
+        self.opt, self.see = opt, see
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        from torch.utils import _pytree as pytree
+
+        from repro_torch import partition
+        for i, (path, g) in enumerate(pytree.tree_flatten_with_path(grads)[0]):
+            self.see(i, pytree.keystr(path),
+                     g.full_tensor() if partition.is_dtensor(g) else g)
+        return self.opt.update(grads, state, params)
+
+
+def _tp_train(torch, dev, arch: str, preset: str, rows: int, seed: int,
+              rules, want=None, microbatches: int = 1) -> dict:
+    """One step of ``arch`` at full width on ``rows`` x TRAIN_SEQ tokens
+    under ``rules`` (None: one rank), in ``microbatches``: its loss, grad
+    norm and time; with ``want`` (the one-rank step's gradients, on the
+    host) each leaf's cosine with it by the leaf's path, and the
+    ``TP_LOWEST`` lowest with the one-rank leaf's root mean square, else
+    the gradients themselves."""
+    from repro_torch import partition
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import WARMUP, preset_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import init_state, make_train_step
+    cfg = preset_config(arch, preset)
+    model = Model(cfg, device=dev)
+    data = SyntheticLMData.for_config(cfg, TRAIN_SEQ, rows, seed=seed,
+                                      mode="succ")
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0).items()}
+    grads, cos, rms = [], {}, {}
+
+    def see(i, name, g):
+        if want is None:
+            grads.append(g.float().cpu())
+        else:
+            w = want[i].to(dev)
+            g = g.float()
+            cos[name] = float((g * w).sum() / torch.clamp(
+                g.norm() * w.norm(), min=1e-30))
+            rms[name] = float(w.norm() / w.numel() ** 0.5)
+
+    opt = _GradSpy(AdamW(learning_rate=cosine_schedule(
+        TRAIN_LR, WARMUP, TRAIN_STEPS)), see)
+    with partition.use_rules(rules):
+        state = init_state(model, opt, seed)
+        step = make_train_step(model, opt, microbatches=microbatches,
+                               param_axes=(None if rules is None
+                                           else model.param_axes()))
+        _sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        _sync(torch, dev)
+        step_s = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else 0.0)
+        repeats = {} if rules is None else dict(rules.repeats)
+    del state, step, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": gnorm, "step_s": step_s,
+            "peak_gib": peak, "repeats": repeats,
+            **({"grads": grads} if want is None else
+               {"leaves": len(cos), "min_cos": min(cos.values()),
+                "cos_below": sum(c < TP_LEAF_COS for c in cos.values()),
+                "cos": cos, "lowest": [(name, cos[name], rms[name])
+                                       for name in sorted(cos, key=cos.get)
+                                       [:TP_LOWEST]],
+                "median_rms": sorted(rms.values())[len(rms) // 2]})}
+
+
+def tp_worker(rank: int, world: int, backend: str, store: str, out_dir: str,
+              seed: int, device_type: str = "cuda", preset: str = "full"):
+    """One rank of phase "tp": the probe of the collectives; on rank 0 the
+    one-rank references (served logits and tokens, a step's gradients),
+    while the others wait; then, on every rank, danube and mamba2-370m
+    served under ``serve_rules`` and a step of each under ``fsdp_rules`` on
+    a (1, world) mesh, with the kernels' launches and shapes.  Writes its
+    results to ``out_dir/rank<r>.pt`` after each stage.  ``device_type``
+    and ``preset`` rehearse it on the CPU (gloo, smaller models)."""
+    import datetime
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    res = {"rank": rank}
+    path = Path(out_dir) / f"rank{rank}.pt"
+
+    def save():
+        torch.save(res, path)
+
+    try:
+        dev = torch.device(device_type, rank if backend == "nccl" else 0)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(minutes=10))
+        shim = (install_gloo_cuda_collectives(torch)
+                if backend == "gloo" and dev.type == "cuda" else None)
+        res["probe"] = tp_probe(torch, dev, world)
+        save()
+        from repro_torch import partition
+        from repro_torch.launch.mesh import make_host_mesh
+        want = {}
+        if rank == 0:
+            for arch, rows in TP_TRAIN:
+                res[f"ref_serve_{arch}"] = _tp_serve(torch, np, dev, arch,
+                                                     preset, seed, None)
+                ref = _tp_train(torch, dev, arch, preset, rows, seed, None)
+                want[arch] = ref.pop("grads")
+                res[f"ref_train_{arch}"] = ref
+                # The control: the same one-rank step in two microbatches,
+                # the same sums in another order and no model axis.
+                res[f"ctrl_train_{arch}"] = _tp_train(
+                    torch, dev, arch, preset, rows, seed, None, want[arch],
+                    microbatches=2)
+                save()
+        dist.barrier()
+        mesh = make_host_mesh(1, world, device=dev)
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with _TPShapes() as shapes:
+            for arch, rows in TP_TRAIN:
+                res[f"serve_{arch}"] = _tp_serve(
+                    torch, np, dev, arch, preset, seed,
+                    partition.serve_rules(mesh, SERVE_REQUESTS))
+                res[f"train_{arch}"] = _tp_train(
+                    torch, dev, arch, preset, rows, seed,
+                    partition.fsdp_rules(mesh, rows), want.get(arch))
+                save()
+        res["launches"] = {name: fn.launches
+                           for name, fn in counters.items()}
+        res["attn_shapes"] = sorted(shapes.attn)
+        res["ssd_shapes"] = sorted(shapes.ssd)
+        del shim
+    except Exception:  # noqa: BLE001 - the phase reports it and fails
+        res["error"] = traceback.format_exc()[-4000:]
+    finally:
+        save()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_local_shapes_phase(checks, torch, dev, seed: int) -> dict:
+    """Rank 0's share of a (1, 2) and a (1, 4) split, alone: the attention
+    kernel at danube's serving shape with H / m and KV / m heads and the
+    SSD kernel at mamba2-370m's with H / m heads, against their plain
+    versions."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for m in (2, 4):
+        B, S, H, KV, dh, window = ATTN_SHAPES[0][1]
+        q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+                   for h in (H // m, KV // m, KV // m))
+        got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        a_err = norm_err(got, want)
+        B, S, H, P, N = SSD_SHAPE
+        x = torch.randn((B, S, H // m, P), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        dt = torch.rand((B, S, H // m), generator=gen, device=dev) * 0.1
+        a = -torch.rand((H // m,), generator=gen, device=dev) - 0.5
+        b, c = (torch.randn((B, S, N), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        y, st = ss.ssd_scan_cuda(x, dt, a, b, c)
+        wy, wst = ss.ssd_scan_plain(x, dt, a, b, c, 64)
+        s_err = max(norm_err(y, wy), norm_err(st, wst))
+        checks.expect(a_err <= ATTN_BAR and s_err <= SSD_BAR,
+                      f"tp: rank 0's share of a (1, {m}) split: attention "
+                      f"{a_err} <= {ATTN_BAR}, ssd {s_err} <= {SSD_BAR}")
+        out[m] = {"attention_err": a_err, "ssd_err": s_err}
+        print(f"phase tp alone (1, {m}): attention at H {H // m}, KV "
+              f"{KV // m}: err {a_err:.3e}; ssd at H {H // m}: err "
+              f"{s_err:.3e}", flush=True)
+    return out
+
+
+def tp_phase(checks, np, torch, dev, seed: int, preset: str = "full") -> dict:
+    """The model axis split over ranks: one rank a card over NCCL on a
+    (1, n) mesh with two or more cards (n 2 or 4), else two processes on
+    the one card over gloo.  Danube and mamba2-370m at full width served
+    under ``serve_rules`` (the whole prefill's logits against one rank's,
+    the first decode position where the greedy tokens differ) and one
+    step of each under ``fsdp_rules`` (loss, grad norm and every leaf's
+    gradient against one rank's); each rank's kernel launches and the
+    shapes they ran at.  Without a working two-rank transport, rank 0's
+    share alone."""
+    import gc
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.train import preset_config
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    # A power of two, so that danube's and mamba2's 32 heads split (on
+    # three cards, two ranks).
+    backend, world = (("nccl", 4 if cards >= 4 else 2) if cards >= 2
+                      else ("gloo", 2))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        t = time.perf_counter()
+        ctx = mp.start_processes(tp_worker, args=(world, backend,
+                                                  f"{tmp}/store", tmp, seed,
+                                                  dev.type, preset),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        exit_note = None
+        try:
+            while not ctx.join(timeout=max(1.0, deadline
+                                           - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    exit_note = f"ranks still running after {TP_TIMEOUT_S} s"
+                    break
+        except mp.ProcessExitedException as e:
+            exit_note = str(e)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(world):
+            f = Path(tmp) / f"rank{r}.pt"
+            ranks.append(torch.load(f, weights_only=False) if f.exists()
+                         else {"rank": r})
+    probe_ok = all(r.get("probe") and all(r["probe"].values())
+                   for r in ranks)
+    if not probe_ok:
+        why = exit_note or [r.get("error", r.get("probe")) for r in ranks]
+        print(f"phase tp: no {world}-rank run was possible ({backend} on "
+              f"{cards} card(s)): the probe of all_reduce, all_gather and "
+              f"broadcast on CUDA tensors failed: {why}", flush=True)
+        checks.expect(backend == "gloo",
+                      f"tp: the {world}-rank NCCL probe failed: {why}")
+        return {"backend": backend, "ranks": 0,
+                "alone": tp_local_shapes_phase(checks, torch, dev, seed)}
+    errors = [r["error"] for r in ranks if "error" in r]
+    checks.expect(not errors and exit_note is None,
+                  f"tp: {world} {backend} ranks failed: {exit_note} "
+                  f"{errors}")
+    if errors or exit_note is not None:
+        return {"backend": backend, "ranks": world, "failed": True}
+    out = {"backend": backend, "ranks": world, "card": smi,
+           "wall_s": wall, "launches": [r["launches"] for r in ranks]}
+    r0 = ranks[0]
+    for arch, rows in TP_TRAIN:
+        ref, got = r0[f"ref_serve_{arch}"], r0[f"serve_{arch}"]
+        err = float((got["logits"] - ref["logits"]).abs().max()
+                    / ref["logits"].abs().max())
+        diff = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                     None) for x, y in zip(got["tokens"], ref["tokens"])]
+        first = min((i for i in diff if i is not None), default=None)
+        tr, tref = r0[f"train_{arch}"], r0[f"ref_train_{arch}"]
+        ctrl = r0[f"ctrl_train_{arch}"]
+        loss_rel = abs(tr["loss"] - tref["loss"]) / abs(tref["loss"])
+        gn_rel = abs(tr["grad_norm"] - tref["grad_norm"]) / tref["grad_norm"]
+        checks.expect(err <= PLAIN_PATH_BAR,
+                      f"tp: {arch}'s prefill logits on {world} ranks, "
+                      f"err/max {err} <= {PLAIN_PATH_BAR} of one rank's")
+        checks.expect(loss_rel <= TRAIN_LOSS_BAR and gn_rel <= TRAIN_GNORM_BAR
+                      and tr["cos_below"] == 0,
+                      f"tp: {arch}'s step on {world} ranks: loss rel "
+                      f"{loss_rel} <= {TRAIN_LOSS_BAR}, grad norm rel "
+                      f"{gn_rel} <= {TRAIN_GNORM_BAR}, {tr['cos_below']} of "
+                      f"{tr['leaves']} leaves below cosine {TP_LEAF_COS} "
+                      f"(min {tr['min_cos']})")
+        for r in ranks:
+            checks.expect(r[f"serve_{arch}"]["repeats"] == {}
+                          and r[f"train_{arch}"]["repeats"] == {},
+                          f"tp: {arch} repeated blocks on rank {r['rank']}: "
+                          f"{r[f'serve_{arch}']['repeats']} "
+                          f"{r[f'train_{arch}']['repeats']}")
+        out[arch] = {
+            "prefill_err": err, "first_token_diff": first,
+            "tokens_equal": got["tokens"] == ref["tokens"],
+            "loss": tr["loss"], "ref_loss": tref["loss"],
+            "loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+            "min_leaf_cos": tr["min_cos"], "train_rows": rows,
+            "lowest_leaves": [
+                {"leaf": name, "cos": c, "ctrl_cos": ctrl["cos"][name],
+                 "rms_over_median": rms / tr["median_rms"]}
+                for name, c, rms in tr["lowest"]],
+            "ctrl_min_cos": ctrl["min_cos"], "ctrl_lowest": ctrl["lowest"],
+            "ref": {k: ref[k] for k in ("prefill_s", "decode_s",
+                                        "tok_per_s")},
+            "tp": {k: got[k] for k in ("prefill_s", "decode_s",
+                                       "tok_per_s")},
+            "step_s": tr["step_s"], "ref_step_s": tref["step_s"],
+            "peak_gib": [r[f"train_{arch}"]["peak_gib"] for r in ranks],
+            "ref_peak_gib": tref["peak_gib"]}
+        tokens = ("equal" if first is None
+                  else f"first differ at decode position {first}")
+        print(f"phase tp {arch}: {world} {backend} ranks on (1, {world}); "
+              f"prefill logits err/max {err:.4e} against one rank; greedy "
+              f"tokens {tokens}; "
+              f"step on {rows} x {TRAIN_SEQ} tokens: loss {tr['loss']:.6f} "
+              f"(one rank {tref['loss']:.6f}, rel {loss_rel:.3e}), grad "
+              f"norm rel {gn_rel:.3e}, min leaf cosine {tr['min_cos']:.6f} "
+              f"over {tr['leaves']} leaves", flush=True)
+        print(f"phase tp {arch} lowest leaves on {world} ranks (cosine; "
+              f"the one-rank step in two microbatches, the control; the "
+              f"one-rank leaf's rms over the median leaf's): " + "; ".join(
+                  f"{d['leaf']} {d['cos']:.6f} (control "
+                  f"{d['ctrl_cos']:.6f}, rms {d['rms_over_median']:.3e})"
+                  for d in out[arch]["lowest_leaves"])
+              + f"; the control's min {ctrl['min_cos']:.6f} at "
+              f"{ctrl['lowest'][0][0]}", flush=True)
+        print(f"phase tp {arch} times ({smi}; {backend} between processes "
+              f"is a correctness transport): prefill "
+              f"{got['prefill_s']:.4f} s on {world} ranks, "
+              f"{ref['prefill_s']:.4f} s on one; decode "
+              f"{got['tok_per_s']:.1f} tokens/s, {ref['tok_per_s']:.1f}; "
+              f"step {tr['step_s']:.4f} s, {tref['step_s']:.4f} s (first "
+              f"calls); peak {out[arch]['peak_gib']} GiB a rank, one rank "
+              f"{tref['peak_gib']:.3f}", flush=True)
+    # Each rank: danube's attention layers once in Server.run's prefill,
+    # twice in the step (remat) and the backward once; mamba2's SSD layers
+    # likewise.
+    dcfg = preset_config("h2o-danube-1.8b", preset)
+    mcfg = preset_config("mamba2-370m", preset)
+    L, Ls = dcfg.n_layers, mcfg.n_layers
+    want = {"dvfs_opt": 0, "flash_attention": 3 * L,
+            "flash_attention_bwd": L, "ssd_scan": 3 * Ls,
+            "ssd_scan_bwd": Ls}
+    for r in ranks:
+        heads = {q[2] for q, _ in r["attn_shapes"]}
+        kv = {k[2] for _, k in r["attn_shapes"]}
+        ssd = {x[2] for x in r["ssd_shapes"]}
+        checks.expect(r["launches"] == want
+                      and heads == {dcfg.n_heads // world}
+                      and kv == {dcfg.n_kv_heads // world}
+                      and ssd == {mcfg.n_ssm_heads // world},
+                      f"tp: rank {r['rank']} launched {r['launches']} (want "
+                      f"{want}) at attention heads {heads} (kv {kv}) and SSD "
+                      f"heads {ssd}")
+        print(f"phase tp rank {r['rank']}: launches {r['launches']}; "
+              f"attention q/k shapes {r['attn_shapes']}; SSD x shapes "
+              f"{r['ssd_shapes']}", flush=True)
+    out["attn_shapes"] = ranks[0]["attn_shapes"]
+    out["ssd_shapes"] = ranks[0]["ssd_shapes"]
+    print(f"phase tp: {world} ranks over {backend} in {wall:.1f} s "
+          f"(spawn, one-rank references, both models served and stepped)",
+          flush=True)
+    return out
 
 
 def _paths(tree, prefix=""):

@@ -521,3 +521,29 @@ def readjust(params: DvfsParams, new_allowed: float,
     out = readjust_batch(batched, np.asarray([float(new_allowed)]), interval,
                          device=device)
     return tuple(float(np.asarray(f)[0]) for f in out)
+
+
+def brute_force_optimum(params: DvfsParams, allowed: float | None = None,
+                        interval: ScalingInterval = dvfs.WIDE, n: int = 160):
+    """Dense-grid reference optimum (tests only; O(n^3) with feasibility
+    mask): ``(energy, (v, fc, fm, t))`` of the least-energy grid point
+    whose time is within ``allowed`` (when given), the reference's oracle
+    in the port's float32 arithmetic.  Each voltage's (fc, fm) grid is one
+    tensor expression; the first least point in (v, fc, fm) order wins, as
+    the reference's loops keep it."""
+    vs = np.linspace(interval.v_min, interval.v_max, n)
+    fms = torch.from_numpy(np.linspace(interval.fm_min, interval.fm_max, n))
+    best = (np.inf, None)
+    for v in vs:
+        fc_hi = float(dvfs.g1(v))
+        fcs = np.linspace(interval.fc_min, fc_hi, n)
+        fcs = torch.from_numpy(fcs[fcs <= fc_hi + 1e-9])[:, None]
+        t = np.asarray(dvfs.exec_time(params, fcs, fms))
+        e = np.asarray(dvfs.power(params, v, fcs, fms)) * t
+        if allowed is not None:
+            e = np.where(t <= allowed + 1e-9, e, np.inf)
+        i, j = np.unravel_index(int(np.argmin(e)), e.shape)
+        if e[i, j] < best[0]:
+            best = (float(e[i, j]), (float(v), float(fcs[i, 0]),
+                                     float(fms[j]), float(t[i, j])))
+    return best

@@ -18,9 +18,11 @@ lowers and compiles against ``ShapeDtypeStruct``s, the port runs the
 step once under a ``FakeTensorMode`` inside ``launch/mesh.py::fake_mesh``:
 rank 0 of a 256- or 512-rank group whose collectives return at once.
 The per-device numbers are this rank's, in the port's layout as it is:
-weights stored sharded and gathered at each use, activations this rank's
-batch shard, so model-axis ranks repeat their data shard's compute
-(``partition.py``); nothing is divided to imitate GSPMD.
+weights stored sharded, activations this rank's batch shard, and each
+model-axis rank computing its share of every block whose dim the model
+axis divides (``partition.py``); the calls of blocks that repeat their
+whole compute on every model rank instead are counted in the record's
+``repeated_blocks``.
 
 The trace's tensors are fake CUDA tensors where torch is built with CUDA.
 A build without it cannot run autograd (or a slice) on a fake CUDA tensor,
@@ -232,8 +234,10 @@ def _group_size(name: str) -> int:
 #: Collective ops a trace issues, by overload packet name: the reference's
 #: op name, the group's size from the op's arguments, and its result from
 #: its output.  The functional ones come from ``DTensor`` redistributes,
-#: the in-place ``c10d`` one from ``torch.distributed.all_reduce`` (the
-#: flash-decode's combines, the moe balance means, the step's loss).
+#: the in-place ``c10d`` ones from ``torch.distributed.all_reduce`` (the
+#: model axis's partial sums, the flash-decode's combines, the moe balance
+#: means, the step's loss) and ``all_gather`` (the model axis's
+#: activation gathers).
 _COLLECTIVE_OPS = {
     "_c10d_functional::all_gather_into_tensor":
         ("all-gather", lambda a: a[1], lambda out: out),
@@ -245,6 +249,9 @@ _COLLECTIVE_OPS = {
         ("all-to-all", lambda a: _group_size(a[3]), lambda out: out),
     "c10d::allreduce_":
         ("all-reduce", lambda a: dist.ProcessGroup.unbox(a[1]).size(),
+         lambda out: out[0]),
+    "c10d::allgather_":
+        ("all-gather", lambda a: dist.ProcessGroup.unbox(a[2]).size(),
          lambda out: out[0]),
 }
 
@@ -523,8 +530,9 @@ def capture(tr: Trace) -> Dict[str, Any]:
 def trace_cell(arch: str, shape: str, mesh, **kw):
     """:func:`build_cell` and one traced call of its ``fn`` under a fresh
     ``FakeTensorMode`` and the cell's rules; returns (the :class:`Trace`,
-    ``{"trace_s", "microbatches"}``).  The twin of the reference's
-    ``compile_cell``."""
+    ``{"trace_s", "microbatches", "repeated_blocks"}``, the last the calls
+    of each kind of block that repeated its compute on every model rank,
+    ``Rules.repeats``).  The twin of the reference's ``compile_cell``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     t0 = time.time()
     with FakeTensorMode():
@@ -532,7 +540,8 @@ def trace_cell(arch: str, shape: str, mesh, **kw):
         batch_arg = 2 if registry.SHAPES[shape].mode == "decode" else 1
         with partition.use_rules(rules):
             tr = trace_call(fn, args, batch_arg, rules.size("batch"))
-    return tr, dict(trace_s=round(time.time() - t0, 2), microbatches=mb)
+    return tr, dict(trace_s=round(time.time() - t0, 2), microbatches=mb,
+                    repeated_blocks=dict(rules.repeats))
 
 
 def hbm_napkin(cfg, spec, mesh, mb: int) -> Dict[str, float]:
@@ -694,6 +703,7 @@ def main(argv=None):
                       f"mem/dev={per_dev:.2f}GiB "
                       f"flops={rec['full']['cost']['flops']:.3g} "
                       f"coll={rec['full']['collectives']['n_collectives']} "
+                      f"repeated={rec['repeated_blocks']} "
                       f"({dt:.0f}s)", flush=True)
             else:
                 print(f"{status} {arch}/{shape}/{mk}: {rec['error']} "

@@ -12,10 +12,12 @@ and an encdec prompt zero audio frames (both frontends are stubs).  Weights are 
 
 Under ``torchrun --nproc-per-node N`` with N > 1, ``main`` binds, as the
 reference does, a ``("data", "model")`` mesh of every rank on the model
-axis with ``partition.fsdp_rules``: the weights are sharded over the ranks
-and gathered at their use, the decode cache is sharded on its positions
-(flash-decode, the cache length rounded up to a multiple of N), and rank 0
-prints.  Alone it serves plain tensors with no mesh: a one-rank mesh gives
+axis with ``partition.fsdp_rules``: each rank holds and computes its share
+of the heads, ff columns, experts, inner channels and vocab (a block whose
+dim N does not divide gathers its weights and repeats), the greedy tokens
+are the argmax across the ranks' vocab columns, the decode cache is
+sharded on its positions (flash-decode, the cache length rounded up to a
+multiple of N), and rank 0 prints.  Alone it serves plain tensors with no mesh: a one-rank mesh gives
 the same tokens and costs the ``DTensor`` layer's host time.
 """
 
@@ -107,7 +109,7 @@ class Server:
         logits, cache = model.prefill(self.params,
                                       prompt_batch(model.cfg, tokens),
                                       max_seq=self.max_seq)
-        nxt = torch.argmax(logits, dim=-1)
+        nxt = model.greedy(logits)
         _sync(self.device)
         prefill_s = time.perf_counter() - t0
         finite = torch.isfinite(logits).all()   # stays on the device
@@ -120,7 +122,7 @@ class Server:
                 if t < r.max_new:
                     r.out.append(int(host[i]))
             logits, cache = model.decode_step(self.params, cache, nxt, s0 + t)
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = model.greedy(logits)
             finite = finite & torch.isfinite(logits).all()
         _sync(self.device)
         decode_s = time.perf_counter() - t0

@@ -12,6 +12,17 @@ rules it also gathers a sharded weight).  The decode cache is updated in
 place (the reference returns a new one): one resident ``[L, B, W, KV, dh]``
 pair instead of a copy per step.
 
+Where the rules split ``heads`` over the model axis and it divides the
+query heads (:func:`local_heads`), each rank computes its heads (Megatron
+tensor parallelism): ``wq`` column-parallel over whole heads, K/V for the
+kv heads those query heads use (``h // (H / KV)``), the kernel at ``H /
+m`` heads, ``wo`` row-parallel and the ranks' outputs summed.  Under
+``fsdp_rules`` the kv projections are replicated on the model axis and
+each rank takes the columns of its kv heads from the whole weight; under
+``serve_rules`` they are split over it, and a rank whose kv heads are its
+own shard reads that shard alone.  A prefill keeps every kv head for the
+cache.  Otherwise every rank computes every head.
+
 Under rules whose ``cache_seq`` axis maps to a mesh dim (``fsdp_rules``,
 ``serve_rules``: the model axis), each rank holds only its ``W / n`` slice
 of the cache's positions.  Each rank computes a local (max, sum-exp,
@@ -51,28 +62,148 @@ def init_attention(b: ParamBuilder, cfg: ModelConfig,
     return p
 
 
-def _bias(params: Params, name: str, axis: str) -> torch.Tensor:
-    return partition.wcast(params[name], COMPUTE_DTYPE, (axis,))
+def local_heads(cfg: ModelConfig, count: bool = True):
+    """(share, klo, khi): this rank's query heads (a ``partition.Share``)
+    and the kv heads ``[klo, khi)`` they use.  Split where the rules split
+    ``heads`` evenly over the model axis, m ranks, and either m divides
+    the kv heads (each rank whole groups) or they divide m (each rank
+    inside one group), so that the kernel's own grouping of the local
+    heads is the model's; else every head (a split that is not so counts
+    a repeat when ``count``)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    block = "attention" if count else None
+    share = partition.shard_of("heads", H, block)
+    if share.split:
+        m = H // (share.hi - share.lo)
+        if KV % m and m % KV:
+            if count:
+                partition.count_repeat(block)
+            share = partition.Share("heads", 0, H)
+    g = H // KV
+    return share, share.lo // g, (share.hi - 1) // g + 1
 
 
-def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: Optional[torch.Tensor], rope: bool = True):
+def _project_q(params: Params, x: torch.Tensor, cfg: ModelConfig,
+               share: partition.Share):
+    """The query heads ``share`` [B, S, H/m, dh] (column-parallel)."""
     B, S, _ = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = x @ partition.wcast(params["wq"], COMPUTE_DTYPE, ("embed", "heads"))
-    k = x @ partition.wcast(params["wk"], COMPUTE_DTYPE, ("embed", "kv"))
-    v = x @ partition.wcast(params["wv"], COMPUTE_DTYPE, ("embed", "kv"))
+    q = x @ partition.wshard(params["wq"], COMPUTE_DTYPE, ("embed", "heads"),
+                             share)
     if "bq" in params:
-        q = q + _bias(params, "bq", "heads")
-        k = k + _bias(params, "bk", "kv")
-        v = v + _bias(params, "bv", "kv")
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, KV, dh)
-    v = v.reshape(B, S, KV, dh)
+        q = q + partition.wshard(params["bq"], COMPUTE_DTYPE, ("heads",),
+                                 share)
+    return q.reshape(B, S, -1, cfg.head_dim_)
+
+
+def _kv_weights(params: Params, cfg: ModelConfig, heads):
+    """(wk, wv, bk, bv) in bf16 for the kv heads ``[klo, khi)`` of
+    ``heads`` (:func:`local_heads`; the biases None without them): the
+    rank's own shard where the rules split ``kv`` so; else the columns of
+    the whole weights (each rank its own where the query heads are split:
+    a partial gradient)."""
+    share, klo, khi = heads
+    dh = cfg.head_dim_
+    kv = partition.shard_of("kv", cfg.n_kv_heads)
+    if kv.split and (kv.lo, kv.hi) == (klo, khi):
+        def read(name, axes):
+            return partition.wshard(params[name], COMPUTE_DTYPE, axes, kv)
+    else:
+        def read(name, axes):
+            w = partition.wcast(params[name], COMPUTE_DTYPE, axes,
+                                sliced=share.split)
+            return w[..., klo * dh:khi * dh]
+    bias = "bk" in params
+    return (read("wk", ("embed", "kv")), read("wv", ("embed", "kv")),
+            read("bk", ("kv",)) if bias else None,
+            read("bv", ("kv",)) if bias else None)
+
+
+def _project_kv_heads(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                      heads):
+    """K and V of the kv heads ``[klo, khi)`` of ``heads`` only: each
+    [B, S, khi - klo, dh] (:func:`_kv_weights`)."""
+    B, S, _ = x.shape
+    wk, wv, bk, bv = _kv_weights(params, cfg, heads)
+    k = x @ wk
+    v = x @ wv
+    if bk is not None:
+        k = k + bk
+        v = v + bv
+    return (k.reshape(B, S, -1, cfg.head_dim_),
+            v.reshape(B, S, -1, cfg.head_dim_))
+
+
+def _project_qkv_heads(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                       heads):
+    """The query heads of ``heads`` and their kv heads from one product
+    with the three weights side by side, so that the gradient of ``x`` is
+    one sum in float32 before it is rounded."""
+    B, S, _ = x.shape
+    dh = cfg.head_dim_
+    share = heads[0]
+    wq = partition.wshard(params["wq"], COMPUTE_DTYPE, ("embed", "heads"),
+                          share)
+    wk, wv, bk, bv = _kv_weights(params, cfg, heads)
+    qkv = x @ torch.cat([wq, wk, wv], dim=1)
+    if bk is not None:
+        qkv = qkv + torch.cat([partition.wshard(
+            params["bq"], COMPUTE_DTYPE, ("heads",), share), bk, bv])
+    q, k, v = torch.split(qkv, [wq.shape[1], wk.shape[1], wv.shape[1]],
+                          dim=-1)
+    return (q.reshape(B, S, -1, dh), k.reshape(B, S, -1, dh),
+            v.reshape(B, S, -1, dh))
+
+
+def _project_kv_whole(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                      share: partition.Share):
+    """Every kv head's K and V [B, S, KV, dh] for a cache, where ``share``
+    holds the query heads: the shards gathered over the model axis where
+    the rules split ``kv`` evenly, else from the whole weights."""
+    KV = cfg.n_kv_heads
+    kv = partition.shard_of("kv", KV)
+    k, v = _project_kv_heads(params, x, cfg, (share, kv.lo, kv.hi))
+    return partition.gather_model(k, 2, kv), partition.gather_model(v, 2, kv)
+
+
+def _out_rows(params: Params, out: torch.Tensor,
+              share: partition.Share) -> torch.Tensor:
+    """The row-parallel output projection of the heads ``share`` (out
+    [..., H/m * dh]), summed over the model axis."""
+    wo = partition.wshard(params["wo"], COMPUTE_DTYPE, ("heads", "embed"),
+                          share)
+    return partition.row_parallel(out, wo, share)
+
+
+def _attend(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+            positions, causal: bool, window, rope: bool,
+            bidirectional_prefix: int, kv_x=None, keep_kv: bool = False):
+    """:func:`attention_with_kv` (or the cross-attention over ``kv_x``) on
+    this rank's heads (:func:`local_heads`): (out [B, S, d], (k, v) of
+    every kv head with ``keep_kv``, else None)."""
+    B, S, _ = x.shape
+    heads = local_heads(cfg)
+    share, klo, khi = heads
+    x = partition.copy_to_model(x, share)
+    kept = None
+    if kv_x is None and not keep_kv and share.split:
+        q, k, v = _project_qkv_heads(params, x, cfg, heads)
+    else:
+        q = _project_q(params, x, cfg, share)
+        if kv_x is not None:
+            k, v = _project_kv_heads(params, partition.copy_to_model(
+                kv_x, share), cfg, heads)
+        else:
+            k, v = _project_kv_whole(params, x, cfg, share)
     if rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    if keep_kv:
+        kept = (k, v)
+        k, v = k[:, :, klo:khi], v[:, :, klo:khi]
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              bidirectional_prefix=bidirectional_prefix)
+    out = partition.constrain(out.reshape(B, S, -1), ("batch", "seq", "heads"))
+    return _out_rows(params, out, share), kept
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -100,31 +231,17 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Full attention block (projections + blockwise core + output
     projection).  ``kv_x`` switches to cross-attention: keys and values
     from the encoder states, no rope, not causal."""
-    B, S, _ = x.shape
-    if kv_x is None:
-        return attention_with_kv(params, x, cfg, positions=positions,
-                                 causal=causal, window=window, rope=rope,
-                                 bidirectional_prefix=bidirectional_prefix)[0]
-    q, _, _ = _project_qkv(params, x, cfg, positions, rope=False)
-    k, v = project_kv(params, kv_x, cfg)
-    out = blockwise_attention(q, k, v, causal=False, window=window,
-                              bidirectional_prefix=bidirectional_prefix)
-    out = partition.constrain(out.reshape(B, S, cfg.q_dim),
-                              ("batch", "seq", "heads"))
-    return out @ partition.wcast(params["wo"], COMPUTE_DTYPE,
-                                 ("heads", "embed"))
+    return _attend(params, x, cfg, positions=positions,
+                   causal=causal and kv_x is None, window=window,
+                   rope=rope and kv_x is None,
+                   bidirectional_prefix=bidirectional_prefix, kv_x=kv_x)[0]
 
 
 def project_kv(params: Params, kv_x: torch.Tensor, cfg: ModelConfig):
-    """Keys/values (no rope) from encoder states: each [B, Sk, KV, dh]."""
-    B, Sk, _ = kv_x.shape
-    k = kv_x @ partition.wcast(params["wk"], COMPUTE_DTYPE, ("embed", "kv"))
-    v = kv_x @ partition.wcast(params["wv"], COMPUTE_DTYPE, ("embed", "kv"))
-    if "bk" in params:
-        k = k + _bias(params, "bk", "kv")
-        v = v + _bias(params, "bv", "kv")
-    return (k.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim_),
-            v.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim_))
+    """Keys/values (no rope) from encoder states: each [B, Sk, KV, dh],
+    every kv head on every rank."""
+    return _project_kv_whole(params, kv_x, cfg,
+                             local_heads(cfg, count=False)[0])
 
 
 def attention_with_kv(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -132,15 +249,11 @@ def attention_with_kv(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       causal: bool = True, window: Optional[int] = None,
                       rope: bool = True, bidirectional_prefix: int = 0):
     """Like :func:`attention` but also returns the (post-rope) K/V for the
-    decode cache: (out [B, S, d], (k, v) each [B, S, KV, dh])."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions, rope)
-    out = blockwise_attention(q, k, v, causal=causal, window=window,
-                              bidirectional_prefix=bidirectional_prefix)
-    out = partition.constrain(out.reshape(B, S, cfg.q_dim),
-                              ("batch", "seq", "heads"))
-    return out @ partition.wcast(params["wo"], COMPUTE_DTYPE,
-                                 ("heads", "embed")), (k, v)
+    decode cache: (out [B, S, d], (k, v) each [B, S, KV, dh], every kv
+    head on every rank)."""
+    return _attend(params, x, cfg, positions=positions, causal=causal,
+                   window=window, rope=rope,
+                   bidirectional_prefix=bidirectional_prefix, keep_kv=True)
 
 
 def _cache_shards():
@@ -266,14 +379,20 @@ def decode_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     v_cache)."""
     B = x.shape[0]
     posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(params, x[:, None], cfg, posb, rope=True)
+    share = local_heads(cfg)[0]
+    # This rank's query heads, gathered for the sequence-sharded decode
+    # (which reads every head over its slice of positions); a new token's
+    # every kv head, for whichever rank owns its slot.
+    q = _project_q(params, x[:, None], cfg, share)
+    q = partition.gather_model(apply_rope(q, posb, cfg.rope_theta), 2, share)
+    k, v = _project_kv_whole(params, x[:, None], cfg, share)
+    k = apply_rope(k, posb, cfg.rope_theta)
     cache_insert(k_cache, k[:, 0], pos, ring=window)
     cache_insert(v_cache, v[:, 0], pos, ring=window)
     eff_len = min(pos + 1, window)
     out = decode_attention_sharded(q[:, 0], k_cache, v_cache, eff_len)
-    out = out.reshape(B, cfg.q_dim)
-    wo = partition.wcast(params["wo"], COMPUTE_DTYPE, ("heads", "embed"))
-    return out @ wo, k_cache, v_cache
+    out = out[:, share.lo:share.hi].reshape(B, -1)
+    return _out_rows(params, out, share), k_cache, v_cache
 
 
 def decode_cross_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -281,17 +400,17 @@ def decode_cross_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """One-token cross-attention over a fixed encoder cache.  x: [B, d];
     xk/xv: [B, F, KV, dh] (whole on every rank).  Returns [B, d]."""
     B = x.shape[0]
-    q, _, _ = _project_qkv(params, x[:, None], cfg, None, rope=False)
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    qg = q[:, 0].reshape(B, KV, H // KV, dh)
+    share, klo, khi = local_heads(cfg)
+    dh = cfg.head_dim_
+    q = _project_q(params, x[:, None], cfg, share)[:, 0]
+    xk, xv = xk[:, :, klo:khi], xv[:, :, klo:khi]
+    qg = q.reshape(B, khi - klo, -1, dh)
     s = torch.einsum("bkgd,bfkd->bkgf", qg.to(COMPUTE_DTYPE).float(),
                      xk.to(COMPUTE_DTYPE).float()) * (dh ** -0.5)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgf,bfkd->bkgd", p.to(COMPUTE_DTYPE).float(),
                      xv.to(COMPUTE_DTYPE).float())
-    out = o.reshape(B, cfg.q_dim).to(x.dtype)
-    return out @ partition.wcast(params["wo"], COMPUTE_DTYPE,
-                                 ("heads", "embed"))
+    return _out_rows(params, o.reshape(B, -1).to(x.dtype), share)
 
 
 def init_decode_cache(cfg: ModelConfig, n_layers: int, batch: int,

@@ -5,7 +5,9 @@ names (``models/layers.py`` there), so a JAX pytree carries across key for
 key (:func:`repro_torch.convert.model_params_from_arrays`).  Master weights
 are float32 (:data:`PARAM_DTYPE`); every matrix is cast to bfloat16
 (:data:`COMPUTE_DTYPE`) where it is used, by ``partition.wcast`` as in the
-reference (under rules it also gathers a sharded weight).  Each parameter
+reference (under rules it also gathers a sharded weight; ``partition.
+wshard`` keeps a model-axis rank's shard local where the block computes
+its share: the MLP's ff columns, the vocab rows).  Each parameter
 is created with its logical axes; :class:`AxesBuilder` builds the axes
 tree of the same layout without allocating anything, and
 :class:`ShapeBuilder` its tensors without values (fake under a
@@ -186,23 +188,50 @@ def init_mlp(b: ParamBuilder, d: int, ff: int, mlp_type: str) -> Params:
     raise ValueError(mlp_type)
 
 
-def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    wi = partition.wcast(params["wi"], COMPUTE_DTYPE, ("embed", "ff"))
-    wo = partition.wcast(params["wo"], COMPUTE_DTYPE, ("ff", "embed"))
-    h = x @ wi
+def _activate(h: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """The MLP's nonlinearity on ``h = x @ wi`` (a gated type's ``[gate |
+    up]`` halves side by side)."""
     if mlp_type in ("swiglu", "geglu"):
         gate, up = torch.chunk(h, 2, dim=-1)
         if mlp_type == "swiglu":
             act = F.silu(gate.float())
         else:  # jax.nn.gelu defaults to the tanh approximation
             act = F.gelu(gate.float(), approximate="tanh")
-        h = act.to(COMPUTE_DTYPE) * up
-    elif mlp_type == "squared_relu":
-        h = torch.square(torch.relu(h))
-    elif mlp_type == "gelu":
-        h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
-    h = partition.constrain(h, ("batch", "seq", "ff"))
-    return h @ wo
+        return act.to(COMPUTE_DTYPE) * up
+    if mlp_type == "squared_relu":
+        return torch.square(torch.relu(h))
+    if mlp_type == "gelu":
+        return F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
+    return h
+
+
+def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """The MLP.  Where the rules split ``ff`` evenly over the model axis,
+    tensor-parallel: ``wi`` column-parallel (this rank's ff columns), ``wo``
+    row-parallel, the partial outputs summed over the axis.  A gated
+    ``wi`` is stored fused, ``[gate | up]``, in the reference's layout,
+    its ff shard a block of the fused dim (on two ranks all of ``gate`` on
+    one, all of ``up`` on the other): this rank's ``gate`` and ``up``
+    columns come from ``partition.fused_product``, which gathers the
+    weight whole for a training step or a long prefill and, for a decode
+    step's few rows, each rank's product with its stored block instead.
+    The compute is sharded either way; an all-to-all of the weight's
+    blocks would move 1/m of it, at the price of a collective gloo was
+    not probed for."""
+    ff = params["wo"].shape[0]
+    share = partition.shard_of("ff", ff, "mlp")
+    lo, hi = share.lo, share.hi
+    x = partition.copy_to_model(x, share)
+    if mlp_type in ("swiglu", "geglu"):
+        h = partition.fused_product(x, params["wi"], COMPUTE_DTYPE,
+                                    ("embed", "ff"), share,
+                                    [(lo, hi), (ff + lo, ff + hi)])
+    else:
+        h = x @ partition.wshard(params["wi"], COMPUTE_DTYPE,
+                                 ("embed", "ff"), share)
+    h = partition.constrain(_activate(h, mlp_type), ("batch", "seq", "ff"))
+    wo = partition.wshard(params["wo"], COMPUTE_DTYPE, ("ff", "embed"), share)
+    return partition.row_parallel(h, wo, share)
 
 
 # ---------------------------------------------------------------------------
@@ -216,16 +245,26 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     fixed order on the card, where an indexing gradient adds them with
     atomics: a replayed training step gives the same bits.  A sharded
     table is gathered in its own dtype, so the gradient sums stay
-    float32.  tokens: [B, S]."""
-    table = partition.gather(table)
-    out = F.embedding(tokens, table).to(COMPUTE_DTYPE)
-    return partition.constrain(out, ("batch", "seq", "act_embed"))
+    float32.  Where the rules split ``vocab`` evenly over the model axis,
+    vocab-parallel: each rank looks up the tokens of its rows (zeros for
+    the others) and the ranks' rows are summed, exactly.  tokens: [B, S]."""
+    share = partition.shard_of("vocab", table.shape[0], "embed")
+    table = partition.wshard(table, table.dtype, ("vocab", "embed"), share)
+    own = (tokens >= share.lo) & (tokens < share.hi)
+    out = F.embedding(torch.where(own, tokens - share.lo, 0), table)
+    out = partition.reduce_from_model(out.masked_fill(~own[..., None], 0),
+                                      share)
+    return partition.constrain(out.to(COMPUTE_DTYPE),
+                               ("batch", "seq", "act_embed"))
 
 
 def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Logits in float32 from bfloat16 activations and head; the vocab dim
-    carries the "vocab" logical axis."""
-    logits = x @ partition.wcast(head, COMPUTE_DTYPE, ("embed", "vocab"))
+    carries the "vocab" logical axis: under a split of it, this rank's
+    columns (``partition.wshard``)."""
+    share = partition.shard_of("vocab", head.shape[1], "unembed")
+    logits = partition.copy_to_model(x, share) @ partition.wshard(
+        head, COMPUTE_DTYPE, ("embed", "vocab"), share)
     return partition.constrain(logits.float(), ("batch", "seq", "vocab"))
 
 

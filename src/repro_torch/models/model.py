@@ -25,16 +25,26 @@ layer through ``ssd_scan``'s (``SSDScan``), so every family trains on the
 card.  Remat is one
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per layer,
 per hybrid unit and per encoder layer, where the reference has its
-per-layer ``jax.checkpoint``.  The reference's ``stack_layers`` and
-``_barrier`` (an ``optimization_barrier`` that fences XLA's scheduling
-around the ``lax.scan`` carry) are artifacts of scanning stacked weights:
-the port's Python loop over a list of layers needs neither.
+per-layer ``jax.checkpoint``; its recompute runs under the forward's
+``partition`` rules (``partition.recompute_context``).  The reference's
+``stack_layers`` and ``_barrier`` (an ``optimization_barrier`` that fences
+XLA's scheduling around the ``lax.scan`` carry) are artifacts of scanning
+stacked weights: the port's Python loop over a list of layers needs
+neither.
 
-Under ``partition`` rules the parameters are ``DTensor``s (each weight
-gathered at its use by ``partition.wcast``), the activations are this
-rank's shard of the batch, and the attention families' decode cache is
-sharded on its positions (``models/attention.py``).  ``param_axes`` gives
-the logical axes of every parameter in the port's per-layer layout.
+Under ``partition`` rules the parameters are ``DTensor``s, the activations
+are this rank's shard of the batch, and the attention families' decode
+cache is sharded on its positions (``models/attention.py``).  Where the
+rules split a block's dim evenly over the model axis, each model-axis rank
+computes its share of it: the attention's heads, the MLP's ff columns,
+the experts, the SSM and RG-LRU inner channels, and the vocab (the
+embedding lookup, the chunked cross-entropy and the logits, of which
+``prefill`` and ``decode_step`` return this rank's columns: :meth:`Model.
+greedy` takes the argmax across them, :meth:`Model.whole_logits` gathers
+them).  The residual stream stays whole on every model rank.  Elsewhere a
+weight is gathered at its use by ``partition.wcast`` and every rank
+repeats the block.  ``param_axes`` gives the logical axes of every
+parameter in the port's per-layer layout.
 """
 
 from __future__ import annotations
@@ -63,14 +73,27 @@ ACT = ("batch", "seq", "act_embed")
 
 
 def _ce_chunk(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-              mask: torch.Tensor, valid_vocab: Optional[int]):
-    """(sum of the masked NLL, sum of the mask) of one sequence chunk."""
+              mask: torch.Tensor, valid_vocab: Optional[int],
+              share: partition.Share):
+    """(sum of the masked NLL, sum of the mask) of one sequence chunk;
+    ``head`` holds the vocab columns ``share`` (where they are split over
+    the model axis, the max, the sum of exponentials and the gold logit,
+    which only its owner holds, are reduced over the ranks)."""
     logits = partition.constrain((x @ head).float(), ("batch", None, "vocab"))
-    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
+    lo, n = share.lo, logits.shape[-1]
+    if valid_vocab is not None and valid_vocab < share.hi:
+        vocab = torch.arange(lo, lo + n, device=logits.device)
         logits = torch.where(vocab >= valid_vocab, -1e30, logits)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if share.split:
+        top = partition.model_max(torch.amax(logits, dim=-1), share)
+        lse = top + torch.log(partition.reduce_from_model(
+            torch.sum(torch.exp(logits - top[..., None]), dim=-1), share))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+    own = (labels >= lo) & (labels < share.hi)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels - lo, 0, n - 1)[..., None])[..., 0]
+    gold = partition.reduce_from_model(torch.where(own, gold, 0.0), share)
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
@@ -85,7 +108,9 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     x: [B, S, d]; head: [d, V]; labels: [B, S]; mask broadcastable to
     [B, S].  The chunk is the largest power-of-two fraction of ``chunk``
     dividing S, and the sums run chunk after chunk, as the reference's
-    scan does."""
+    scan does.  Where the rules split ``vocab`` evenly over the model axis,
+    vocab-parallel: each rank computes the logits of its columns, and
+    ``valid_vocab`` masks by global vocab index."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -95,13 +120,17 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     mask = mask.float().expand(B, S)
     labels = labels.long()
     # One cast (and under rules one gather), shared by every chunk.
-    head = partition.wcast(head, COMPUTE_DTYPE, (None, "vocab"))
+    share = partition.shard_of("vocab", head.shape[1], "cross_entropy")
+    head = partition.wshard(head, COMPUTE_DTYPE, (None, "vocab"), share)
+    x = partition.copy_to_model(x, share)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lo in range(0, S, c):
-        nll, m = checkpoint(_ce_chunk, x[:, lo:lo + c], head,
-                            labels[:, lo:lo + c], mask[:, lo:lo + c],
-                            valid_vocab, use_reentrant=False)
+    for start in range(0, S, c):
+        nll, m = checkpoint(_ce_chunk, x[:, start:start + c], head,
+                            labels[:, start:start + c],
+                            mask[:, start:start + c], valid_vocab, share,
+                            use_reentrant=False,
+                            context_fn=partition.recompute_context)
         tot = tot + nll
         cnt = cnt + m
     return tot / torch.clamp(cnt, min=1.0)
@@ -228,21 +257,43 @@ class Model:
             return params["embed"].T
         return params["head"]
 
-    def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
+    def _mask_pad_logits(self, logits: torch.Tensor,
+                         lo: int = 0) -> torch.Tensor:
+        """Pads (global vocab index >= ``vocab_size``) to -1e30; ``logits``
+        holds the columns from ``lo``."""
         v = self.cfg.vocab_size
-        if logits.shape[-1] == v:
+        if lo == 0 and logits.shape[-1] == v:
             return logits
-        pad = torch.arange(logits.shape[-1], device=logits.device) >= v
+        pad = torch.arange(lo, lo + logits.shape[-1],
+                           device=logits.device) >= v
         return torch.where(pad, -1e30, logits)
 
+    def _vocab_share(self) -> partition.Share:
+        """This rank's :class:`partition.Share` of the padded vocab."""
+        return partition.shard_of("vocab", self.cfg.padded_vocab)
+
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, d] final hidden states -> [B, V] f32, pads masked."""
+        """x: [B, d] final hidden states -> [B, V] f32, pads masked; under
+        a split of the vocab, this rank's columns [B, V / m]."""
         x = _norm(params["final_norm"], x[:, None], self.norm_kind,
                   self.cfg.norm_eps)[:, 0]
-        logits = x @ partition.wcast(self.head_matrix(params), COMPUTE_DTYPE,
-                                     ("embed", "vocab"))
+        head = self.head_matrix(params)
+        share = partition.shard_of("vocab", head.shape[1], "logits")
+        logits = partition.copy_to_model(x, share) @ partition.wshard(
+            head, COMPUTE_DTYPE, ("embed", "vocab"), share)
         logits = partition.constrain(logits.float(), ("batch", "vocab"))
-        return self._mask_pad_logits(logits)
+        return self._mask_pad_logits(logits, share.lo)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy tokens [B] of :meth:`prefill`'s or :meth:`decode_step`'s
+        logits: ``torch.argmax`` over the whole vocab, across the ranks'
+        columns where they are split (ties to the smallest index)."""
+        return partition.argmax_sharded(logits, self._vocab_share())
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocab's logits [B, V] from each rank's columns (an
+        all-gather); ``logits`` itself without a split."""
+        return partition.gather_model(logits, -1, self._vocab_share())
 
     # ----- forward (training) ---------------------------------------------
     def _attn_mlp_layer(self, p: Params, x: torch.Tensor, positions, *,
@@ -320,7 +371,8 @@ class Model:
 
         def run(fn, *args):
             if remat:
-                return checkpoint(fn, *args, use_reentrant=False)
+                return checkpoint(fn, *args, use_reentrant=False,
+                                  context_fn=partition.recompute_context)
             return fn(*args)
 
         if fam in ("dense", "vlm", "moe"):
@@ -481,8 +533,9 @@ class Model:
                                         rope=False)[0]
 
         for p in params["enc_layers"]:
-            x = (checkpoint(layer, p, x, use_reentrant=False) if remat
-                 else layer(p, x))
+            x = (checkpoint(layer, p, x, use_reentrant=False,
+                            context_fn=partition.recompute_context)
+                 if remat else layer(p, x))
         return _norm(params["enc_norm"], x, "ln", cfg.norm_eps)
 
     # ----- prefill ----------------------------------------------------------
@@ -492,7 +545,8 @@ class Model:
         """Process a prompt ``batch["tokens"]`` [B, S] (plus
         ``batch["patch_embeds"]`` [B, n_patches, d] for vlm, which overwrite
         the first positions, and ``batch["frames"]`` [B, n_frames, d] for
-        encdec); returns (last-token logits [B, V] f32, decode cache)."""
+        encdec); returns (last-token logits [B, V] f32, this rank's
+        columns under a split of the vocab; decode cache)."""
         cfg = self.cfg
         fam = cfg.family
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
@@ -563,7 +617,8 @@ class Model:
     def decode_step(self, params: Params, cache: dict, token: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, dict]:
         """One token.  token: [B] int; pos: the current length.  Returns
-        (logits [B, V] f32, the cache, updated in place)."""
+        (logits [B, V] f32, this rank's columns under a split of the
+        vocab; the cache, updated in place)."""
         cfg = self.cfg
         fam = cfg.family
         token = torch.as_tensor(token, device=self.device)

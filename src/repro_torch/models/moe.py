@@ -13,6 +13,12 @@ times the float32 tensor at the serving batch's 16,384 tokens).
 Aux losses (load balance plus 1e-3 router z-loss) are returned as the
 reference returns them.  The matmul layer has no kernel of its own: the
 expert products are torch matmuls, as the reference left them to XLA.
+
+Where the rules split ``expert`` evenly over the model axis, expert
+parallelism: every rank routes every token with the whole router (small,
+and the same decisions on each rank), then dispatches to, computes and
+combines only its own experts ``[E / m, G, C, d]``; the partial outputs are
+summed over the axis.  The aux loss is the whole router's.
 """
 
 from __future__ import annotations
@@ -104,6 +110,17 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     gate, eidx, pos, keep, C, aux = moe_routing(params, x, cfg, group=group)
     G, T = gate.shape[:2]
     xg = x.reshape(G, T, d)
+    # This rank's experts [lo, hi) (all of them unless the rules split
+    # them): the rest of the tokens' choices are dropped here and kept by
+    # their owners.
+    share = partition.shard_of("expert", E, "moe")
+    lo, hi = share.lo, share.hi
+    mine = (eidx >= lo) & (eidx < hi)
+    keep = keep & mine
+    eidx = torch.where(mine, eidx - lo, 0)
+    E = hi - lo
+    gate = partition.copy_to_model(gate, share)
+    xg = partition.copy_to_model(xg, share)
 
     # dispatch / combine one-hots, built per k to bound transients.
     flat_idx = eidx * C + torch.clamp(pos, max=C - 1)          # [G, T, k]
@@ -120,10 +137,10 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     expert_in = torch.einsum("gtx,gtd->gxd", dispatch, xg.to(COMPUTE_DTYPE))
     expert_in = expert_in.reshape(G, E, C, d).permute(1, 0, 2, 3)
     expert_in = partition.constrain(expert_in, ("expert", "batch", None, None))
-    wi = partition.wcast(params["wi"], COMPUTE_DTYPE,
-                         ("expert", "embed", "expert_ff"))
-    wo = partition.wcast(params["wo"], COMPUTE_DTYPE,
-                         ("expert", "expert_ff", "embed"))
+    wi = partition.wshard(params["wi"], COMPUTE_DTYPE,
+                          ("expert", "embed", "expert_ff"), share)
+    wo = partition.wshard(params["wo"], COMPUTE_DTYPE,
+                          ("expert", "expert_ff", "embed"), share)
     h = expert_in.reshape(E, G * C, d) @ wi
     if cfg.mlp_type in ("swiglu", "geglu"):
         g_, u_ = torch.chunk(h, 2, dim=-1)
@@ -138,8 +155,9 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                             ("expert", "batch", None, "expert_ff"))
     expert_out = h.reshape(E, G * C, -1) @ wo                  # [E, G*C, d]
     expert_out = expert_out.reshape(E, G, C, d).permute(1, 0, 2, 3)
-    y = torch.bmm(combine.to(COMPUTE_DTYPE),
-                  expert_out.reshape(G, E * C, d))             # [G, T, d]
+    y = partition.row_parallel(combine.to(COMPUTE_DTYPE),
+                               expert_out.reshape(G, E * C, d),
+                               share)                          # [G, T, d]
     y = partition.constrain(y, ("batch", None, "act_embed"))
     return y.reshape(B, S, d), aux
 

@@ -17,6 +17,13 @@ element-wise update of an O(1) state.
 The full recurrent block (as in Griffin) is two branches: a GeLU gate
 branch, and a (linear -> causal conv1d -> RG-LRU) branch, merged
 multiplicatively and projected back to ``d_model``.
+
+Where the rules split ``inner`` evenly over the model axis, each rank
+computes its channels: ``w_gate`` / ``w_in`` column-parallel, the conv and
+the recurrence on the local channels (both are per channel), the gates'
+``wa`` / ``wx`` (which read every channel) on the conv output gathered over
+the axis for this rank's output channels, and ``w_out`` row-parallel.  The
+decode state is this rank's channels.
 """
 
 from __future__ import annotations
@@ -52,15 +59,22 @@ def init_rglru_block(b: ParamBuilder, cfg: ModelConfig) -> Params:
             "w_out": b.param((r, d), ("inner", "embed"), scale=0.02)}
 
 
-def _gates(params: Params, x: torch.Tensor):
-    """(a_t, beta_t * i_t ⊙ x_t) for the linear recurrence, in float32."""
-    def f32(name, axes):
-        return partition.wcast(params[name], torch.float32, axes)
+def _gates(params: Params, x: torch.Tensor,
+           share: Optional[partition.Share] = None):
+    """(a_t, beta_t * i_t ⊙ x_t) for the linear recurrence, in float32;
+    ``x`` holds the channels ``share`` (all of them by default), and so do
+    the results: ``wa`` / ``wx`` read every channel, so they take ``x``
+    gathered over the model axis where the channels are split."""
+    share = share or partition.Share("inner", 0, x.shape[-1])
 
+    def f32(name, axes):
+        return partition.wshard(params[name], torch.float32, axes, share)
+
+    xw = partition.gather_model(x, -1, share).float()
     xf = x.float()
-    r_gate = torch.sigmoid(xf @ f32("wa", (None, "inner"))
+    r_gate = torch.sigmoid(xw @ f32("wa", (None, "inner"))
                            + f32("ba", ("inner",)))
-    i_gate = torch.sigmoid(xf @ f32("wx", (None, "inner"))
+    i_gate = torch.sigmoid(xw @ f32("wx", (None, "inner"))
                            + f32("bx", ("inner",)))
     log_a = -C_FACTOR * softplus(f32("lam", ("inner",))) * r_gate
     a = torch.exp(log_a)
@@ -84,11 +98,12 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_scan(params: Params, x: torch.Tensor,
-               h0: Optional[torch.Tensor] = None
+               h0: Optional[torch.Tensor] = None,
+               share: Optional[partition.Share] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RG-LRU over a sequence.  x: [B, S, r] -> (h [B, S, r] in x's
-    dtype, h_last [B, r] float32)."""
-    a, b_term = _gates(params, x)
+    dtype, h_last [B, r] float32); ``share``: the channels ``x`` holds."""
+    a, b_term = _gates(params, x, share)
     if h0 is not None:
         # The initial state as a virtual step 0 with gain 1.
         a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
@@ -99,10 +114,11 @@ def rglru_scan(params: Params, x: torch.Tensor,
     return h.to(x.dtype), h[:, -1]
 
 
-def rglru_step(params: Params, x: torch.Tensor,
-               h_prev: torch.Tensor) -> torch.Tensor:
-    """One decode step.  x: [B, r]; h_prev: [B, r] -> h [B, r] float32."""
-    a, b_term = _gates(params, x[:, None, :])
+def rglru_step(params: Params, x: torch.Tensor, h_prev: torch.Tensor,
+               share: Optional[partition.Share] = None) -> torch.Tensor:
+    """One decode step.  x: [B, r]; h_prev: [B, r] -> h [B, r] float32;
+    ``share``: the channels ``x`` holds."""
+    a, b_term = _gates(params, x[:, None, :], share)
     return a[:, 0] * h_prev.float() + b_term[:, 0]
 
 
@@ -129,13 +145,13 @@ def recurrent_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     return_state: bool = False):
     """Griffin recurrent block.  x: [B, S, d]; ``state``: (conv_state
-    [B, W-1, r], h [B, r]).  Returns y [B, S, d], and with ``return_state``
-    also the state after the last token."""
+    [B, W-1, r], h [B, r]), this rank's channels.  Returns y [B, S, d],
+    and with ``return_state`` also the state after the last token."""
     conv_state, h0 = state if state is not None else (None, None)
-    gate = _gelu(x @ partition.wcast(params["w_gate"], COMPUTE_DTYPE,
-                                     ("embed", "inner")))
-    u = x @ partition.wcast(params["w_in"], COMPUTE_DTYPE,
-                            ("embed", "inner"))
+    share = local_channels(cfg)
+    x = partition.copy_to_model(x, share)
+    gate = _gelu(x @ _read(params["w_gate"], ("embed", "inner"), share))
+    u = x @ _read(params["w_in"], ("embed", "inner"), share)
     u = partition.constrain(u, ("batch", "seq", "inner"))
 
     new_conv = None
@@ -146,11 +162,11 @@ def recurrent_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if hist.shape[1] < W - 1:
             hist = F.pad(hist, (0, 0, W - 1 - hist.shape[1], 0))
         new_conv = hist[:, -(W - 1):]
-    u = _causal_conv(u, *conv_weights(params), conv_state)
+    u = _causal_conv(u, *conv_weights(params, share), conv_state)
 
-    h, h_last = rglru_scan(params, u, h0)
-    y = (h * gate) @ partition.wcast(params["w_out"], COMPUTE_DTYPE,
-                                     ("inner", "embed"))
+    h, h_last = rglru_scan(params, u, h0, share)
+    y = partition.row_parallel(
+        h * gate, _read(params["w_out"], ("inner", "embed"), share), share)
     if return_state:
         return y, (new_conv.to(COMPUTE_DTYPE), h_last)
     return y
@@ -160,21 +176,38 @@ def recurrent_block_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
                            state: Tuple[torch.Tensor, torch.Tensor]):
     """One-token decode.  x: [B, d] -> (y [B, d], new (conv, h) state)."""
     conv_state, h_prev = state
-    gate = _gelu(x @ partition.wcast(params["w_gate"], COMPUTE_DTYPE,
-                                     ("embed", "inner")))
-    u = x @ partition.wcast(params["w_in"], COMPUTE_DTYPE, ("embed", "inner"))
+    share = local_channels(cfg)
+    gate = _gelu(x @ _read(params["w_gate"], ("embed", "inner"), share))
+    u = x @ _read(params["w_in"], ("embed", "inner"), share)
     hist = torch.cat([conv_state.to(u.dtype), u[:, None, :]], dim=1)
-    w, bias = conv_weights(params)
+    w, bias = conv_weights(params, share)
     u = torch.sum(hist * w[None], dim=1) + bias
-    h = rglru_step(params, u, h_prev)
-    y = (h.to(COMPUTE_DTYPE) * gate) @ partition.wcast(
-        params["w_out"], COMPUTE_DTYPE, ("inner", "embed"))
+    h = rglru_step(params, u, h_prev, share)
+    y = partition.row_parallel(
+        h.to(COMPUTE_DTYPE) * gate,
+        _read(params["w_out"], ("inner", "embed"), share), share)
     return y, (hist[:, 1:], h)
 
 
+def local_channels(cfg: ModelConfig, count: bool = True) -> partition.Share:
+    """This rank's RG-LRU channels: split where the rules split ``inner``
+    evenly over the model axis, else all of them (a split that does not
+    divide counts a repeat when ``count``)."""
+    return partition.shard_of("inner", cfg.rnn_width_,
+                              "rglru" if count else None)
+
+
+def _read(w: torch.Tensor, axes, share: partition.Share) -> torch.Tensor:
+    """The bf16 read of one of the block's matrices: this rank's shard of
+    ``share``."""
+    return partition.wshard(w, COMPUTE_DTYPE, axes, share)
+
+
 def init_rglru_state(cfg: ModelConfig, batch: int, device=None):
-    """Zeroed (conv [B, W-1, r] bf16, h [B, r] float32)."""
-    r = cfg.rnn_width_
+    """Zeroed (conv [B, W-1, r] bf16, h [B, r] float32); this rank's
+    channels under a split of them."""
+    share = local_channels(cfg, count=False)
+    r = share.hi - share.lo
     return (torch.zeros((batch, cfg.conv_width - 1, r), dtype=COMPUTE_DTYPE,
                         device=device),
             torch.zeros((batch, r), dtype=torch.float32, device=device))

@@ -48,9 +48,31 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of the sum of squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in pytree.tree_leaves(tree)))
+    """sqrt of the sum over leaves of the sum of squares, in float32, as a
+    plain tensor.  A ``DTensor`` leaf's squares are summed on its local
+    shard, then over the mesh dims (of more than one rank) that shard it:
+    a sharded leaf counts each element once across its shards, a
+    replicated one once in all.  The leaves' sums add in leaf order within
+    each set of such dims, and one all-reduce a mesh dim sums the sets."""
+    sums = {}
+    for x in pytree.tree_leaves(tree):
+        key = ()
+        if partition.is_dtensor(x):
+            mesh = x.device_mesh
+            key = tuple((mesh, i) for i, p in enumerate(x.placements)
+                        if not p.is_replicate() and mesh.size(i) > 1)
+            x = x.to_local()
+        s = torch.sum(torch.square(x.float()))
+        sums[key] = s if key not in sums else sums[key] + s
+    total = 0
+    for key, s in sums.items():
+        if key:
+            import torch.distributed as dist
+            s = s.clone()
+            for mesh, i in key:
+                dist.all_reduce(s, group=mesh.get_group(i))
+        total = total + s
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,13 +9,18 @@ the model bounds the live activations to one microbatch and one layer) and
 
 Under ``partition`` rules the state is ``DTensor``s with the placements of
 :func:`make_state_axes`; each rank takes its shard of the global batch
-(``partition.shard_batch``), and its loss, divided by the number of ranks,
-is what it differentiates: the gathered weights send each rank's gradient
-back as a partial sum (``partition.wcast``), so the summed gradient is the
-mean over the batch shards: the whole batch's when every shard holds as
-many unmasked labels (a moe model's balance terms are whole-batch means,
-``partition.batch_mean``).  The loss in the metrics is that mean over the
-ranks.
+(``partition.shard_batch``).  The model-axis ranks of a batch shard compute
+one loss between them (each its share of the split blocks), so what a rank
+differentiates is that loss divided by ``partition.grad_ranks()``, the
+number of ranks whose gradients sum: every rank but the model axis's.  A
+weight's gradient comes back as a partial sum over those ranks
+(``partition.wcast`` / ``wshard``), reduce-scattered to its placement: a
+model-axis shard's gradient is its own, a weight every model rank uses
+whole has the same one on each.  The summed gradient is then the mean over
+the batch shards: the whole batch's when every shard holds as many
+unmasked labels (a moe model's balance terms are whole-batch means,
+``partition.batch_mean``), and a (1, m) mesh gives one device's loss and
+gradients.  The loss in the metrics is the mean over the batch shards.
 """
 
 from __future__ import annotations
@@ -125,8 +130,7 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         batch = {k: partition.shard_batch(torch.as_tensor(v,
                                                           device=model.device))
                  for k, v in batch.items()}
-        rules = partition.current_rules()
-        ranks = 1 if rules is None else rules.mesh.size()
+        ranks = partition.grad_ranks()
         if microbatches == 1:
             loss, metrics, grads = grad_of(params, batch, ranks)
             grads = constrain_grads(grads)
@@ -158,7 +162,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         new_params, new_opt, opt_metrics = optimizer.update(
             grads, state.opt, params)
         if ranks > 1:
-            loss = partition.mesh_sum(loss.clone()) / ranks
+            loss = partition.mesh_sum(loss.clone(),
+                                      partition.grad_dims()) / ranks
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return TrainState(new_params, new_opt, state.step + 1), metrics
 

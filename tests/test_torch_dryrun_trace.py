@@ -52,21 +52,22 @@ def test_cell_on_mini_mesh():
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 def test_serving_cells_under_serve_rules(shape):
     """A prefill and a decode of a reduced config on a 2 x 2 mesh under
-    ``serve_rules``: the decode's flash-decode combines over the sharded
-    cache are counted as all-reduces; the decode's cache is its argument,
+    ``serve_rules``: each model rank computes its heads, ff columns and
+    vocab columns, so both count the row-parallel sums as all-reduces (the
+    decode also the flash-decode's combines over the sharded cache, three
+    a layer) and the gathers of the fused MLP weight and of the kv heads
+    for the cache as all-gathers; the decode's cache is its argument,
     updated in place."""
     with fake_mesh((2, 2)) as mesh:
-        tr, _ = dr.trace_cell(DENSE, shape, mesh, cfg=_small(),
-                              batch_rows=4, rules_kind="serve")
+        tr, meta = dr.trace_cell(DENSE, shape, mesh, cfg=_small(),
+                                 batch_rows=4, rules_kind="serve")
         cap = dr.capture(tr)
     per_op = cap["collectives"]["per_op_operand_bytes"]
     assert cap["cost"]["flops"] > 0 and per_op["all-gather"] > 0
+    assert per_op["all-reduce"] > 0 and meta["repeated_blocks"] == {}
     if shape == "decode_32k":
-        # three all-reduces (max, sum of l, sum of o) per layer
-        assert per_op["all-reduce"] > 0
         assert cap["memory"]["alias_size_in_bytes"] > 0
     else:
-        assert "all-reduce" not in per_op
         assert cap["memory"]["output_size_in_bytes"] > 0
 
 
@@ -131,6 +132,32 @@ def test_data_parallel_halves_the_flops():
             caps[shape] = dr.capture(tr)
     one, two = caps[(1, 1)]["cost"]["flops"], caps[(2, 1)]["cost"]["flops"]
     assert one > 0 and two * 2 == one
+
+
+def test_the_model_axis_splits_the_matmuls():
+    """A reduced danube's training step on a fake (1, 4) mesh: each model
+    rank computes a quarter of the heads, ff columns and vocab, and its
+    K/V for the one kv head its query heads use, so its ``aten.mm`` FLOPs
+    are at most 0.3 of the (1, 1) trace's (the two kv heads' projections
+    are halved, not quartered), with no block repeated."""
+    mm = {}
+    for shape in ((1, 1), (1, 4)):
+        with fake_mesh(shape) as mesh:
+            tr, meta = dr.trace_cell(DENSE, "train_4k", mesh, cfg=_small(),
+                                     batch_rows=4, microbatches=1)
+        mm[shape] = tr.flops.get_flop_counts()["Global"][torch.ops.aten.mm]
+        assert meta["repeated_blocks"] == {}
+    assert 0 < mm[(1, 4)] <= 0.3 * mm[(1, 1)]
+
+
+def test_whisper_repeats_its_attention_on_sixteen_model_ranks():
+    """whisper-base's 8 heads do not split over a 16-rank model axis: its
+    decode step repeats each attention block (self and cross, every
+    layer) on every rank and counts it; its ff and vocab split."""
+    cfg = registry.get_config("whisper-base")
+    with fake_mesh((1, 16)) as mesh:
+        _, meta = dr.trace_cell("whisper-base", "decode_32k", mesh)
+    assert meta["repeated_blocks"] == {"attention": 2 * cfg.n_layers}
 
 
 def test_probes_correct_to_the_full_trace():

@@ -202,3 +202,45 @@ def test_config_from_solution_bit_equal_on_the_same_rows():
         x, y = getattr(want, f), getattr(got, f)
         assert np.asarray(x).dtype == np.asarray(y).dtype
         np.testing.assert_array_equal(x, y)
+
+
+def _bf_case(case):
+    """``tests/test_single_task.py``'s brute-force cases: (library index,
+    allowed time or None, grid size)."""
+    kind, x = case
+    if kind == "free":
+        return x, None, 200
+    p = rtasks.app_library()[5]
+    tmin = float(rdvfs.min_time(p, rdvfs.WIDE))
+    tstar = float(p.default_time())
+    return 5, tmin + x * 0.3 * (tstar - tmin), 220
+
+
+BF_CASES = [("free", i) for i in (0, 3, 7, 12, 19)] + \
+    [("deadline", f) for f in (0.9, 0.95, 0.99)]
+
+
+@pytest.mark.parametrize("case", BF_CASES, ids=[f"{k}-{x}" for k, x in
+                                                BF_CASES])
+def test_brute_force_optimum_matches_the_reference(case):
+    """The port's dense-grid oracle picks the reference's grid point, its
+    energy within E_REL (the JAX side's float32 products contract into
+    FMAs), and holds the port's solvers at the reference test's bars."""
+    i, allowed, n = _bf_case(case)
+    p = rtasks.app_library()[i]
+    pp = _pp(p)
+    want_e, want_pt = ref.brute_force_optimum(p, allowed=allowed, n=n)
+    got_e, got_pt = single_task.brute_force_optimum(pp, allowed=allowed, n=n)
+    assert got_e == pytest.approx(want_e, rel=E_REL)
+    assert got_pt[:3] == want_pt[:3]
+    assert got_pt[3] == pytest.approx(want_pt[3], rel=E_REL)
+    one = dvfs.DvfsParams(*(np.asarray([f], np.float64)
+                            for f in pp.astuple()))
+    if allowed is None:
+        sol = single_task.solve_unconstrained(one, device="cpu")
+        assert float(sol.energy[0]) == pytest.approx(got_e, rel=2e-3)
+    else:
+        sol = single_task.solve_with_deadline(one, np.asarray([allowed]),
+                                              device="cpu")
+        assert float(sol.energy[0]) == pytest.approx(got_e, rel=6e-3)
+        assert float(sol.time[0]) <= allowed + 1e-5
