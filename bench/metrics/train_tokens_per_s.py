@@ -1,0 +1,8 @@
+"""Tokens trained in the window over the window's seconds; the window ends
+in a synchronize after its last step."""
+
+
+def read(rec):
+    if rec["kind"] != "train":
+        return None
+    return rec["tokens"] / rec["window_s"]
