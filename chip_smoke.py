@@ -573,7 +573,7 @@ def device_ms(torch, fn, symbols, reps: int) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
+        events = device_events(prof)
         for symbol in symbols:
             ms, n = device_split(events, symbol)[0]["kernel"]
             if out[symbol] is None and n:
@@ -1047,8 +1047,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         host.disable()
         wall = time.perf_counter() - t
-    spans = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
-                   reverse=True)
+    spans = sorted(device_events(prof),
+                   key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in spans) / 1e3
     top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in spans[:6])
@@ -1836,7 +1836,7 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
             max_seq=SERVE_PROMPT + SERVE_GEN + 8)
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - t
-    split, p_top = device_split(prof.key_averages(), KERNEL_SYMBOLS[kernel])
+    split, p_top = device_split(device_events(prof), KERNEL_SYMBOLS[kernel])
     p_busy = sum(ms for ms, _ in split.values())
     nxt = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
@@ -1848,7 +1848,7 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
             nxt = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    events = sorted(prof.key_averages(), reverse=True,
+    events = sorted(device_events(prof), reverse=True,
                     key=lambda e: e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_kernels = sum(e.count for e in events if e.self_device_time_total > 0)
@@ -2332,7 +2332,7 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - t
     step_peak = torch.cuda.max_memory_allocated(dev)
-    events = prof.key_averages()
+    events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     split, top = device_split(events, "flash_")   # both attention kernels
     bwd_ms, n_bwd = device_split(events, "flash_bwd")[0]["kernel"]
@@ -2473,7 +2473,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - t
-    events = prof.key_averages()
+    events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     split, top = device_split(events, "ssd_")   # the SSD kernels together
     fwd_ms, n_fwd = device_split(events, "ssd_fwd")[0]["kernel"]
@@ -3048,6 +3048,14 @@ def dryrun_phase(checks, np, torch, dev, seed: int) -> dict:
 KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "ssd_scan": "ssd_fwd"}
 # Device kernels of a matrix product (cuBLAS and CUTLASS names).
 MATMUL_SYMBOLS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def device_events(prof) -> list:
+    """A profile's entries by name (``key_averages``) less the device's
+    mirrors of host ranges (``record_function``, the port's spans among
+    them), which are no operation of the card's."""
+    return [e for e in prof.key_averages()
+            if not getattr(e, "is_user_annotation", False)]
 
 
 def device_split(events, symbol: str) -> tuple:

@@ -19,6 +19,15 @@ are the argmax across the ranks' vocab columns, the decode cache is
 sharded on its positions (flash-decode, the cache length rounded up to a
 multiple of N), and rank 0 prints.  Alone it serves plain tensors with no mesh: a one-rank mesh gives
 the same tokens and costs the ``DTensor`` layer's host time.
+
+Under a ``torch.profiler``, :meth:`Server.run` records its spans
+(``repro_torch.spans``): ``serve.run`` {``rids``, ``first_token_ns``: each
+request's host time, on ``time.perf_counter_ns``, at which its first token
+reached ``Request.out``} around ``serve.submit`` (left-pad and copy to the
+device), ``serve.prefill`` {``positions``: B x the padded length,
+``prompt_tokens``} and one ``serve.decode_step`` {``t``, ``active``: the
+requests still decoding} a new token, which holds ``serve.host_sync`` (the
+tokens' copy to the host, where the host waits for the card).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch import partition
+from repro_torch import partition, spans
 from repro_torch.configs import registry
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch.mesh import make_host_mesh, process_group
@@ -95,35 +104,58 @@ class Server:
         until every request hits its token budget.  Times are host seconds
         that end in a device synchronize; ``logits_finite`` says whether
         every logit of the prefill and of each step was finite."""
-        model = self.model
         B = len(requests)
         if B > self.slots:
             raise ValueError(f"{B} requests for {self.slots} slots")
+        with spans.span("serve.run") as traced:
+            if traced is not None:
+                traced.attrs.update(rids=[r.rid for r in requests],
+                                    first_token_ns={})
+            return self._run(requests, traced)
+
+    def _run(self, requests: List[Request], traced) -> dict:
+        model = self.model
+        B = len(requests)
         s0 = max(len(r.prompt) for r in requests)
-        toks = np.zeros((B, s0), np.int64)
-        for i, r in enumerate(requests):
-            toks[i, s0 - len(r.prompt):] = r.prompt  # left-pad
-        tokens = torch.from_numpy(toks).to(self.device)
+        with spans.span("serve.submit"):
+            toks = np.zeros((B, s0), np.int64)
+            for i, r in enumerate(requests):
+                toks[i, s0 - len(r.prompt):] = r.prompt  # left-pad
+            tokens = torch.from_numpy(toks).to(self.device)
         _sync(self.device)
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(self.params,
-                                      prompt_batch(model.cfg, tokens),
-                                      max_seq=self.max_seq)
-        nxt = model.greedy(logits)
-        _sync(self.device)
-        prefill_s = time.perf_counter() - t0
+        with spans.span("serve.prefill") as traced_prefill:
+            if traced_prefill is not None:
+                traced_prefill.attrs.update(
+                    positions=B * s0,
+                    prompt_tokens=sum(len(r.prompt) for r in requests))
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(self.params,
+                                          prompt_batch(model.cfg, tokens),
+                                          max_seq=self.max_seq)
+            nxt = model.greedy(logits)
+            _sync(self.device)
+            prefill_s = time.perf_counter() - t0
         finite = torch.isfinite(logits).all()   # stays on the device
 
         max_new = max(r.max_new for r in requests)
         t0 = time.perf_counter()
         for t in range(max_new):
-            host = nxt.tolist()          # one device -> host copy a step
-            for i, r in enumerate(requests):
-                if t < r.max_new:
-                    r.out.append(int(host[i]))
-            logits, cache = model.decode_step(self.params, cache, nxt, s0 + t)
-            nxt = model.greedy(logits)
-            finite = finite & torch.isfinite(logits).all()
+            with spans.span("serve.decode_step") as traced_step:
+                if traced_step is not None:
+                    traced_step.attrs.update(t=t, active=sum(
+                        t < r.max_new for r in requests))
+                with spans.span("serve.host_sync"):
+                    host = nxt.tolist()  # one device -> host copy a step
+                for i, r in enumerate(requests):
+                    if t < r.max_new:
+                        r.out.append(int(host[i]))
+                        if t == 0 and traced is not None:
+                            traced.attrs["first_token_ns"][r.rid] = \
+                                time.perf_counter_ns()
+                logits, cache = model.decode_step(self.params, cache, nxt,
+                                                  s0 + t)
+                nxt = model.greedy(logits)
+                finite = finite & torch.isfinite(logits).all()
         _sync(self.device)
         decode_s = time.perf_counter() - t0
         for r in requests:

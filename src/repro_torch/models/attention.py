@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch import partition
+from repro_torch import partition, spans
 from repro_torch.kernels.flash_attention import (DEFAULT_CHUNK, NEG_INF,
                                                  flash_attention_kernel)
 from repro_torch.models.config import ModelConfig
@@ -223,6 +223,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   bidirectional_prefix=bidirectional_prefix)
 
 
+@spans.spanned("model.attention")
 def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
               window: Optional[int] = None, rope: bool = True,
@@ -244,6 +245,7 @@ def project_kv(params: Params, kv_x: torch.Tensor, cfg: ModelConfig):
                              local_heads(cfg, count=False)[0])
 
 
+@spans.spanned("model.attention")
 def attention_with_kv(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       positions: Optional[torch.Tensor] = None,
                       causal: bool = True, window: Optional[int] = None,
@@ -370,6 +372,7 @@ def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+@spans.spanned("model.attention")
 def decode_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
                 window: int):
@@ -395,6 +398,7 @@ def decode_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return _out_rows(params, out, share), k_cache, v_cache
 
 
+@spans.spanned("model.attention")
 def decode_cross_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
                       xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     """One-token cross-attention over a fixed encoder cache.  x: [B, d];

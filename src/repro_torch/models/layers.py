@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import partition
+from repro_torch import partition, spans
 
 Params = Dict[str, Any]
 
@@ -205,6 +205,7 @@ def _activate(h: torch.Tensor, mlp_type: str) -> torch.Tensor:
     return h
 
 
+@spans.spanned("model.mlp")
 def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     """The MLP.  Where the rules split ``ff`` evenly over the model axis,
     tensor-parallel: ``wi`` column-parallel (this rank's ff columns), ``wo``
@@ -239,6 +240,7 @@ def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@spans.spanned("model.embed")
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` in bfloat16 (== cast, then gather).  Through
     ``F.embedding``, whose gradient sums the rows of repeated tokens in a

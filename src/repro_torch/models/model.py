@@ -45,6 +45,14 @@ them).  The residual stream stays whole on every model rank.  Elsewhere a
 weight is gathered at its use by ``partition.wcast`` and every rank
 repeats the block.  ``param_axes`` gives the logical axes of every
 parameter in the port's per-layer layout.
+
+Under a ``torch.profiler`` the blocks record spans (``repro_torch.spans``),
+by the same names in training, prefill and decode: ``model.embed``,
+``model.layer`` {``layer``; ``encoder`` for whisper's encoder layers}
+around ``model.norm``, ``model.attention``, ``model.mlp`` or ``model.moe``
+and ``model.ssm`` (``models/ssm.py``), and ``model.loss`` (the chunked
+cross-entropy with its head product).  A remat layer's recompute records
+its spans again, under ``train.backward``.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import partition
+from repro_torch import partition, spans
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -97,6 +105,7 @@ def _ce_chunk(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
+@spans.spanned("model.loss")
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
@@ -143,11 +152,19 @@ def _init_norm(b: ParamBuilder, d: int, kind: str) -> Params:
             "bias": b.param((d,), ("embed",), init="zeros")}
 
 
+@spans.spanned("model.norm")
 def _norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
     scale = partition.gather(p["scale"])
     if kind == "rms":
         return rms_norm(x, scale, eps)
     return layer_norm(x, scale, partition.gather(p["bias"]), eps)
+
+
+def _layer(fn, i: int, *args, **attrs):
+    """``fn(*args)`` as the model's layer ``i`` (the ``model.layer`` span,
+    with ``attrs``)."""
+    with spans.span("model.layer", layer=i, **attrs):
+        return fn(*args)
 
 
 class Model:
@@ -332,9 +349,13 @@ class Model:
         x = x + mlp(p["mlp"], h, cfg.mlp_type)
         return partition.constrain(x, ACT)
 
-    def _hybrid_unit(self, unit, x: torch.Tensor, positions) -> torch.Tensor:
-        for p, kind in zip(unit, self.cfg.block_pattern):
-            x = self._hybrid_train_layer(p, x, positions, kind)
+    def _hybrid_unit(self, unit, x: torch.Tensor, positions,
+                     first: int) -> torch.Tensor:
+        """A pattern unit whose first layer is the model's layer
+        ``first``."""
+        for j, (p, kind) in enumerate(zip(unit, self.cfg.block_pattern)):
+            x = _layer(self._hybrid_train_layer, first + j, p, x, positions,
+                       kind)
         return x
 
     def _decoder_layer(self, p: Params, x: torch.Tensor, positions,
@@ -383,25 +404,28 @@ class Model:
                                             window=cfg.sliding_window,
                                             prefix=prefix)
 
-            for p in params["layers"]:
-                x, a = run(layer, p, x)
+            for i, p in enumerate(params["layers"]):
+                x, a = run(_layer, layer, i, p, x)
                 if a is not None:
                     aux = aux + a
         elif fam == "ssm":
-            for p in params["layers"]:
-                x = run(self._ssm_layer, p, x)
+            for i, p in enumerate(params["layers"]):
+                x = run(_layer, self._ssm_layer, i, p, x)
         elif fam == "hybrid":
-            for unit in params["layers"]:
-                x = run(self._hybrid_unit, unit, x, positions)
             pattern = cfg.block_pattern
+            for u, unit in enumerate(params["layers"]):
+                x = run(self._hybrid_unit, unit, x, positions,
+                        u * len(pattern))
+            first = len(params["layers"]) * len(pattern)
             for i, p in enumerate(params.get("rem_layers", ())):
-                x = self._hybrid_train_layer(p, x, positions, pattern[i])
+                x = _layer(self._hybrid_train_layer, first + i, p, x,
+                           positions, pattern[i])
         else:  # encdec
             enc = self._encode(params, torch.as_tensor(batch["frames"],
                                                        device=self.device),
                                remat=remat)
-            for p in params["layers"]:
-                x = run(self._decoder_layer, p, x, positions, enc)
+            for i, p in enumerate(params["layers"]):
+                x = run(_layer, self._decoder_layer, i, p, x, positions, enc)
         x = _norm(params["final_norm"], x, self.norm_kind, cfg.norm_eps)
         return x, aux
 
@@ -532,10 +556,11 @@ class Model:
             return self._attn_mlp_layer(p, x, None, causal=False,
                                         rope=False)[0]
 
-        for p in params["enc_layers"]:
-            x = (checkpoint(layer, p, x, use_reentrant=False,
+        for i, p in enumerate(params["enc_layers"]):
+            x = (checkpoint(_layer, layer, i, p, x, encoder=True,
+                            use_reentrant=False,
                             context_fn=partition.recompute_context)
-                 if remat else layer(p, x))
+                 if remat else _layer(layer, i, p, x, encoder=True))
         return _norm(params["enc_norm"], x, "ln", cfg.norm_eps)
 
     # ----- prefill ----------------------------------------------------------
@@ -560,7 +585,8 @@ class Model:
         if fam in ("dense", "vlm", "moe"):
             W = self.cache_window(max_seq)
             prefix = cfg.n_patches if fam == "vlm" else 0
-            for i, p in enumerate(params["layers"]):
+
+            def layer(p, x):
                 h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
                 out, (k, v) = attn_lib.attention_with_kv(
                     p["attn"], h, cfg, positions=positions,
@@ -568,34 +594,42 @@ class Model:
                 x = x + out
                 h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
                 x = partition.constrain(x + self._ffn(p["mlp"], h), ACT)
-                kc, vc = attn_lib.pack_cache(k, v, W)
+                return x, attn_lib.pack_cache(k, v, W)
+
+            for i, p in enumerate(params["layers"]):
+                x, (kc, vc) = _layer(layer, i, p, x)
                 cache["k"][i].copy_(kc)
                 cache["v"][i].copy_(vc)
         elif fam == "ssm":
-            for i, p in enumerate(params["layers"]):
+            def layer(p, x):
                 h = _norm(p["ln"], x, "rms", cfg.norm_eps)
-                out, (conv, ssm) = ssm_lib.mamba2_block(p["mixer"], h, cfg,
-                                                       return_state=True)
-                x = partition.constrain(x + out, ACT)
+                out, state = ssm_lib.mamba2_block(p["mixer"], h, cfg,
+                                                  return_state=True)
+                return partition.constrain(x + out, ACT), state
+
+            for i, p in enumerate(params["layers"]):
+                x, (conv, ssm) = _layer(layer, i, p, x)
                 cache["conv"][i].copy_(conv)
                 cache["ssm"][i].copy_(ssm)
         elif fam == "hybrid":
             pattern = cfg.block_pattern
             for u, unit in enumerate(params["layers"]):
                 for i, kind in enumerate(pattern):
-                    x, st = self._hybrid_layer(unit[i], x, positions, kind,
-                                               max_seq)
+                    x, st = _layer(self._hybrid_layer, u * len(pattern) + i,
+                                   unit[i], x, positions, kind, max_seq)
                     for name, t in st.items():
                         cache["units"][i][name][u].copy_(t)
+            first = len(params["layers"]) * len(pattern)
             for i, p in enumerate(params.get("rem_layers", ())):
-                x, st = self._hybrid_layer(p, x, positions, pattern[i],
-                                           max_seq)
+                x, st = _layer(self._hybrid_layer, first + i, p, x,
+                               positions, pattern[i], max_seq)
                 for name, t in st.items():
                     cache["rem"][i][name].copy_(t)
         else:  # encdec
             enc = self._encode(params, torch.as_tensor(batch["frames"],
                                                        device=self.device))
-            for i, p in enumerate(params["layers"]):
+
+            def layer(p, x):
                 h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
                 out, (k, v) = attn_lib.attention_with_kv(
                     p["self"], h, cfg, positions=positions)
@@ -608,7 +642,11 @@ class Model:
                 x = x + mlp(p["mlp"], h, cfg.mlp_type)
                 x = partition.constrain(x, ACT)
                 kc, vc = attn_lib.pack_cache(k, v, max_seq)
-                for name, t in (("k", kc), ("v", vc), ("xk", xk), ("xv", xv)):
+                return x, (("k", kc), ("v", vc), ("xk", xk), ("xv", xv))
+
+            for i, p in enumerate(params["layers"]):
+                x, st = _layer(layer, i, p, x)
+                for name, t in st:
                     cache[name][i].copy_(t)
         return self._logits(params, x[:, -1]), cache
 
@@ -626,20 +664,26 @@ class Model:
         x = embed_lookup(params["embed"], token[:, None])[:, 0]    # [B, d]
         if fam in ("dense", "vlm", "moe"):
             W = attn_lib.global_window(cache["k"].shape[2])
-            for i, p in enumerate(params["layers"]):
+
+            def layer(p, x, k, v):
                 h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
-                out, _, _ = attn_lib.decode_attn(p["attn"], h, cfg,
-                                                 cache["k"][i], cache["v"][i],
+                out, _, _ = attn_lib.decode_attn(p["attn"], h, cfg, k, v,
                                                  pos, W)
                 x = x + out
                 h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
-                x = x + self._ffn(p["mlp"], h)[:, 0]
-        elif fam == "ssm":
+                return x + self._ffn(p["mlp"], h)[:, 0]
+
             for i, p in enumerate(params["layers"]):
+                x = _layer(layer, i, p, x, cache["k"][i], cache["v"][i])
+        elif fam == "ssm":
+            def layer(p, x, state):
                 h = _norm(p["ln"], x, "rms", cfg.norm_eps)
-                out, (conv, ssm) = ssm_lib.mamba2_decode(
-                    p["mixer"], h, cfg, (cache["conv"][i], cache["ssm"][i]))
-                x = x + out
+                out, state = ssm_lib.mamba2_decode(p["mixer"], h, cfg, state)
+                return x + out, state
+
+            for i, p in enumerate(params["layers"]):
+                x, (conv, ssm) = _layer(layer, i, p, x, (cache["conv"][i],
+                                                         cache["ssm"][i]))
                 cache["conv"][i].copy_(conv)
                 cache["ssm"][i].copy_(ssm)
         elif fam == "hybrid":
@@ -648,22 +692,26 @@ class Model:
                 for i, kind in enumerate(pattern):
                     st = {name: t[u] for name, t in
                           cache["units"][i].items()}
-                    x = self._hybrid_decode(unit[i], x, kind, st, pos)
+                    x = _layer(self._hybrid_decode, u * len(pattern) + i,
+                               unit[i], x, kind, st, pos)
+            first = len(params["layers"]) * len(pattern)
             for i, p in enumerate(params.get("rem_layers", ())):
-                x = self._hybrid_decode(p, x, pattern[i], cache["rem"][i],
-                                        pos)
+                x = _layer(self._hybrid_decode, first + i, p, x, pattern[i],
+                           cache["rem"][i], pos)
         else:  # encdec
             W = attn_lib.global_window(cache["k"].shape[2])
-            for i, p in enumerate(params["layers"]):
+
+            def layer(p, x, k, v, xk, xv):
                 h = _norm(p["ln1"], x[:, None], "ln", cfg.norm_eps)[:, 0]
-                out, _, _ = attn_lib.decode_attn(p["self"], h, cfg,
-                                                 cache["k"][i], cache["v"][i],
+                out, _, _ = attn_lib.decode_attn(p["self"], h, cfg, k, v,
                                                  pos, W)
                 x = x + out
                 h = _norm(p["ln2"], x[:, None], "ln", cfg.norm_eps)[:, 0]
-                x = x + attn_lib.decode_cross_attn(p["cross"], h, cfg,
-                                                   cache["xk"][i],
-                                                   cache["xv"][i])
+                x = x + attn_lib.decode_cross_attn(p["cross"], h, cfg, xk, xv)
                 h = _norm(p["ln3"], x[:, None], "ln", cfg.norm_eps)
-                x = x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
+                return x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
+
+            for i, p in enumerate(params["layers"]):
+                x = _layer(layer, i, p, x, *(cache[name][i] for name in
+                                             ("k", "v", "xk", "xv")))
         return self._logits(params, x), cache

@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import partition
+from repro_torch import partition, spans
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamBuilder, Params
 
@@ -102,6 +102,7 @@ def moe_routing(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return gate, eidx, pos, pos < C, C, aux
 
 
+@spans.spanned("model.moe")
 def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             group: int = DEFAULT_GROUP) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the MoE MLP.  x: [B, S, d] -> ([B, S, d], aux loss scalar)."""

@@ -21,6 +21,12 @@ local channels (x's and all of B and C), the SSD kernel at ``H / m``
 heads, the gated RMSNorm sums its squares over the ranks, and
 ``out_proj`` is row-parallel.  The decode state is this rank's channels
 and heads.
+
+Under a ``torch.profiler`` a block is the span ``model.ssm``
+(``repro_torch.spans``) around ``ssm.conv`` (the depthwise conv and its
+history), ``ssm.scan`` (dt's softplus, the SSD scan and the skip) and
+``ssm.gate_norm`` (the gated RMSNorm and ``out_proj``); ``in_proj`` is the
+rest of it.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
-from repro_torch import partition
+from repro_torch import partition, spans
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamBuilder, Params, rms_norm
 
@@ -171,6 +177,7 @@ def ssd_reference(x, dt, a, b_in, c_in) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(ys, dim=1), s
 
 
+@spans.spanned("model.ssm")
 def mamba2_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  return_state: bool = False):
@@ -188,27 +195,31 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     z, xbc, dt_raw = torch.split(zxbcdt, [h * p, h * p + 2 * n, h], dim=-1)
 
     conv_state, ssm_state = state if state is not None else (None, None)
-    new_conv = (_conv_history(xbc, conv_state, cfg.conv_width)
-                if return_state else None)
-    w, bias = conv_weights(params, heads, conv_cols)
-    xbc = _causal_conv(xbc, w, bias, conv_state)
+    with spans.span("ssm.conv"):
+        new_conv = (_conv_history(xbc, conv_state, cfg.conv_width)
+                    if return_state else None)
+        w, bias = conv_weights(params, heads, conv_cols)
+        xbc = _causal_conv(xbc, w, bias, conv_state)
 
-    xs, b_in, c_in = torch.split(xbc, [h * p, n, n], dim=-1)
-    xs = partition.constrain(xs, ("batch", "seq", "inner"))
-    xs = xs.reshape(B, S, h, p)      # a strided view: the kernel takes it
-    a = -torch.exp(_head_vector(params, "a_log", heads))
-    dt = softplus(dt_raw.float() + _head_vector(params, "dt_bias", heads))
+    with spans.span("ssm.scan"):
+        xs, b_in, c_in = torch.split(xbc, [h * p, n, n], dim=-1)
+        xs = partition.constrain(xs, ("batch", "seq", "inner"))
+        xs = xs.reshape(B, S, h, p)   # a strided view: the kernel takes it
+        a = -torch.exp(_head_vector(params, "a_log", heads))
+        dt = softplus(dt_raw.float() + _head_vector(params, "dt_bias", heads))
 
-    y, final_state = ssd_chunked(xs, dt, a, b_in, c_in, cfg.ssm_chunk,
-                                 init_state=ssm_state)
-    y = y + xs.float() * _head_vector(params, "d_skip", heads)[:, None]
-    y = y.reshape(B, S, h * p).to(COMPUTE_DTYPE)
+        y, final_state = ssd_chunked(xs, dt, a, b_in, c_in, cfg.ssm_chunk,
+                                     init_state=ssm_state)
+        y = y + xs.float() * _head_vector(params, "d_skip", heads)[:, None]
+        y = y.reshape(B, S, h * p).to(COMPUTE_DTYPE)
 
-    # gated RMSNorm then out projection
-    y = _gated_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params, cfg,
-                    heads)
-    out = partition.row_parallel(y, partition.wshard(
-        params["out_proj"], COMPUTE_DTYPE, ("inner", "embed"), heads), heads)
+    with spans.span("ssm.gate_norm"):
+        # gated RMSNorm then out projection
+        y = _gated_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params, cfg,
+                        heads)
+        out = partition.row_parallel(y, partition.wshard(
+            params["out_proj"], COMPUTE_DTYPE, ("inner", "embed"), heads),
+            heads)
     if return_state:
         return out, (new_conv.to(COMPUTE_DTYPE), final_state)
     return out
@@ -223,6 +234,7 @@ def _conv_history(xbc: torch.Tensor, conv_state, W: int) -> torch.Tensor:
     return hist[:, -(W - 1):, :]
 
 
+@spans.spanned("model.ssm")
 def mamba2_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
                   state: Tuple[torch.Tensor, torch.Tensor]):
     """Single-token decode.  x: [B, d]; state as in :func:`mamba2_block`.
@@ -237,32 +249,36 @@ def mamba2_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
     cols, conv_cols = _split_cols(cfg, heads)
     zxbcdt = partition.fused_product(x, params["in_proj"], COMPUTE_DTYPE,
                                      ("embed", "inner"), heads, cols)
-    w, bias = conv_weights(params, heads, conv_cols)
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
 
-    # conv ring update
-    hist = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
-    new_conv = hist[:, 1:, :]
-    conv_out = torch.sum(hist * w[None], dim=1) + bias
-    xbc = F.silu(conv_out.float()).to(COMPUTE_DTYPE)
+    with spans.span("ssm.conv"):
+        w, bias = conv_weights(params, heads, conv_cols)
+        # conv ring update
+        hist = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
+        new_conv = hist[:, 1:, :]
+        conv_out = torch.sum(hist * w[None], dim=1) + bias
+        xbc = F.silu(conv_out.float()).to(COMPUTE_DTYPE)
 
-    xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
-    xs = xs.reshape(B, h, p)
-    a = -torch.exp(_head_vector(params, "a_log", heads))
-    dt = softplus(dt_raw.float()
-                  + _head_vector(params, "dt_bias", heads))          # [B, h]
+    with spans.span("ssm.scan"):
+        xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+        xs = xs.reshape(B, h, p)
+        a = -torch.exp(_head_vector(params, "a_log", heads))
+        dt = softplus(dt_raw.float()
+                      + _head_vector(params, "dt_bias", heads))      # [B, h]
 
-    decay = torch.exp(dt * a)[..., None, None]                        # [B,h,1,1]
-    upd = torch.einsum("bhp,bn->bhpn", xs.float() * dt[..., None],
-                       b_in.float())
-    new_ssm = ssm_state * decay + upd
-    y = torch.einsum("bhpn,bn->bhp", new_ssm, c_in.float())
-    y = y + xs.float() * _head_vector(params, "d_skip", heads)[:, None]
-    y = y.reshape(B, di).to(COMPUTE_DTYPE)
-    y = _gated_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params, cfg,
-                    heads)
-    out = partition.row_parallel(y, partition.wshard(
-        params["out_proj"], COMPUTE_DTYPE, ("inner", "embed"), heads), heads)
+        decay = torch.exp(dt * a)[..., None, None]                # [B,h,1,1]
+        upd = torch.einsum("bhp,bn->bhpn", xs.float() * dt[..., None],
+                           b_in.float())
+        new_ssm = ssm_state * decay + upd
+        y = torch.einsum("bhpn,bn->bhp", new_ssm, c_in.float())
+        y = y + xs.float() * _head_vector(params, "d_skip", heads)[:, None]
+        y = y.reshape(B, di).to(COMPUTE_DTYPE)
+    with spans.span("ssm.gate_norm"):
+        y = _gated_norm(y * F.silu(z.float()).to(COMPUTE_DTYPE), params, cfg,
+                        heads)
+        out = partition.row_parallel(y, partition.wshard(
+            params["out_proj"], COMPUTE_DTYPE, ("inner", "embed"), heads),
+            heads)
     return out, (new_conv, new_ssm)
 
 

@@ -12,6 +12,11 @@ Port of the JAX package's ``train/loop.py``:
 * **Straggler watchdog** — an EWMA of the step's wall time; steps slower
   than ``straggler_factor`` x EWMA are counted and surfaced.
 
+Each metrics row carries the step's seconds (``time_s``) and the seconds
+its batch took to arrive (``data_s``: ``data.batch`` and ``put_batch``,
+the ``loop.data`` span of ``repro_torch.spans``), both on
+``time.perf_counter``.
+
 Unlike the reference, the step the loop resumes after is the one stored in
 the checkpoint it restored (``CheckpointStore.restore`` returns it): the
 reference reads ``latest_step()`` again after restoring, and an async save
@@ -27,6 +32,7 @@ import json
 import time
 from typing import Any, Callable, Dict, Optional
 
+from repro_torch import spans
 from repro_torch.checkpoint.store import CheckpointStore
 
 
@@ -86,13 +92,15 @@ def run_loop(step_fn: Callable, state, data, cfg: LoopConfig, *,
             try:
                 if failure_hook is not None:
                     failure_hook(step)
-                batch = data.batch(step)
-                if put_batch is not None:
-                    batch = put_batch(batch)
-                t0 = time.time()
+                t0 = time.perf_counter()
+                with spans.span("loop.data"):
+                    batch = data.batch(step)
+                    if put_batch is not None:
+                        batch = put_batch(batch)
+                t1 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])
-                dt = time.time() - t0
+                dt = time.perf_counter() - t1
                 if ewma is None:
                     ewma = dt
                 elif dt > cfg.straggler_factor * ewma and step > start + 2:
@@ -103,7 +111,8 @@ def run_loop(step_fn: Callable, state, data, cfg: LoopConfig, *,
                 losses.append(loss)
                 loss_steps.append(step)
                 if metrics_f:
-                    row = {"step": step, "loss": loss, "time_s": dt}
+                    row = {"step": step, "loss": loss, "time_s": dt,
+                           "data_s": t1 - t0}
                     row.update({k: float(v) for k, v in metrics.items()
                                 if k != "loss"})
                     metrics_f.write(json.dumps(row) + "\n")

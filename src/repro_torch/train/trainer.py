@@ -21,16 +21,27 @@ the batch shards: the whole batch's when every shard holds as many
 unmasked labels (a moe model's balance terms are whole-batch means,
 ``partition.batch_mean``), and a (1, m) mesh gives one device's loss and
 gradients.  The loss in the metrics is the mean over the batch shards.
+
+Under a ``torch.profiler`` a step records its spans (``repro_torch.spans``):
+``train.step`` {``step``: the step function's call number, ``tokens``}
+around ``train.batch`` (the batch onto the device and this rank's shard),
+``train.forward`` (``Model.loss_fn``), ``train.backward``
+(``torch.autograd.grad``, the remat recompute included) and
+``train.optimizer`` {``leaves``, ``elements``} (``AdamW.update``); with
+microbatches, forward and backward under ``train.microbatch`` {``mb``}.
+``train.backward`` and ``train.optimizer`` also time themselves on the card
+(``timed``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch import partition
+from repro_torch import partition, spans
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.optim.compression import compress_int8, decompress_int8
@@ -119,31 +130,44 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     def grad_of(params, mb, ranks):
         leaves, spec = pytree.tree_flatten(params)
         live = [t.detach().requires_grad_() for t in leaves]
-        loss, metrics = model.loss_fn(pytree.tree_unflatten(live, spec), mb,
-                                      remat=remat)
-        grads = torch.autograd.grad(loss / ranks if ranks > 1 else loss, live)
+        with spans.span("train.forward"):
+            loss, metrics = model.loss_fn(pytree.tree_unflatten(live, spec),
+                                          mb, remat=remat)
+        with spans.span("train.backward", timed=True):
+            grads = torch.autograd.grad(loss / ranks if ranks > 1 else loss,
+                                        live)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             pytree.tree_unflatten(list(grads), spec)
 
+    calls = itertools.count()
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with spans.span("train.step", step=next(calls)) as traced:
+            return step_body(state, batch, traced)
+
+    def step_body(state, batch, traced):
         params = state.params
-        batch = {k: partition.shard_batch(torch.as_tensor(v,
-                                                          device=model.device))
-                 for k, v in batch.items()}
+        with spans.span("train.batch"):
+            batch = {k: partition.shard_batch(
+                torch.as_tensor(v, device=model.device))
+                for k, v in batch.items()}
+        if traced is not None:
+            traced.attrs["tokens"] = batch["tokens"].numel()
         ranks = partition.grad_ranks()
         if microbatches == 1:
             loss, metrics, grads = grad_of(params, batch, ranks)
             grads = constrain_grads(grads)
         else:
             grads, lsum = None, 0.0
-            for mb in _microbatches(batch, microbatches):
-                l, _, g = grad_of(params, mb, ranks)
-                g = pytree.tree_map(lambda t: t.float(), g)
-                if grads is not None:
-                    g = pytree.tree_map(torch.add, grads, g)
-                grads = constrain_grads(g)
-                lsum = lsum + l
-                del g
+            for i, mb in enumerate(_microbatches(batch, microbatches)):
+                with spans.span("train.microbatch", mb=i):
+                    l, _, g = grad_of(params, mb, ranks)
+                    g = pytree.tree_map(lambda t: t.float(), g)
+                    if grads is not None:
+                        g = pytree.tree_map(torch.add, grads, g)
+                    grads = constrain_grads(g)
+                    lsum = lsum + l
+                    del g
             grads = pytree.tree_map(lambda g: g / microbatches, grads)
             loss = lsum / microbatches
             metrics = {}
@@ -159,8 +183,13 @@ def make_train_step(model: Model, optimizer: AdamW, *,
             grads = deq
             metrics = dict(metrics, quant_err=qerr)
 
-        new_params, new_opt, opt_metrics = optimizer.update(
-            grads, state.opt, params)
+        with spans.span("train.optimizer", timed=True) as s:
+            if s is not None:
+                leaves = pytree.tree_leaves(grads)
+                s.attrs.update(leaves=len(leaves),
+                               elements=sum(g.numel() for g in leaves))
+            new_params, new_opt, opt_metrics = optimizer.update(
+                grads, state.opt, params)
         if ranks > 1:
             loss = partition.mesh_sum(loss.clone(),
                                       partition.grad_dims()) / ranks
