@@ -102,7 +102,17 @@ without the final result line):
    the bound (the function's operands only; the bytes of chunk states and
    state cotangents the design moves besides are printed beside it), and
    the forward with and without writing its chunk states;
-13. train danube — the training path: h2o-danube-1.8b at full width and
+13. adamw — ``csrc/adamw.cu`` (the multi-tensor AdamW update and its
+   per-leaf norms) against the plain per-leaf loop on h2o-danube-1.8b's and
+   mamba2-370m's parameter sets at full size and on a set of odd sizes
+   (one element, three, none, 4,097, 2^20 + 5, a leaf 4 bytes past a
+   16-byte boundary): three updates with the same injected scalars, p, m
+   and v bit-equal, each leaf's sum of squares within 2e-6 of
+   ``torch.sum``; ``AdamW.update`` through the public path, 3 launches and
+   no gradient copied; at danube's 1.83B parameters the kernel's time
+   beside its 32-bytes-an-element bound, the plain loop's and
+   ``torch._fused_adamw_``'s (a yardstick the port never calls);
+14. train danube — the training path: h2o-danube-1.8b at full width and
    depth (24 layers), B 8, S 2048, ``succ`` data, the reference launcher's
    AdamW and schedule, remat on: the first step's loss and gradient norm
    through the kernels against the same step through the plain versions;
@@ -111,17 +121,17 @@ without the final result line):
    replayed losses must equal the first run's bit for bit), the launch
    counts of the run checked exactly; step seconds, tokens/s, peak memory,
    and one profiled step's device idle share and the kernels' shares;
-14. train mamba2 — the ssm family's training path: mamba2-370m at full
+15. train mamba2 — the ssm family's training path: mamba2-370m at full
    width and depth (48 layers), B 8, S 2048, ``succ`` data, the same AdamW
    and remat: the first step's loss and gradient norm through the kernels
    against the plain versions, then 5 steps with their launch counts
    checked exactly (the SSD forward twice a layer, the backward once);
    step seconds, tokens/s, peak memory, one profiled step's idle share and
    the SSD kernels' shares;
-15. train families — one train step of the ``smoke`` preset of each other
+16. train families — one train step of the ``smoke`` preset of each other
    family on the card (moe, hybrid, encdec, vlm, ssm: finite loss and
    gradient norm, the family's backward kernel launched);
-16. mesh — the multi-device layer on the one card: the online day's
+17. mesh — the multi-device layer on the one card: the online day's
    largest launch matrix (99,328 rows) and a 300k-row fuzz matrix through
    ``dvfs_solve_matrix`` split over ``[cuda:0, cuda:0]`` (``ops.solve_devices``
    listing the card twice; padding, two
@@ -138,7 +148,7 @@ without the final result line):
    restored with ``shardings=`` onto the mesh, every leaf equal; the
    serve and step times with and without the mesh, beside the card's name
    and power limit;
-17. dryrun — the dry-run (``launch/dryrun.py``) against the card:
+18. dryrun — the dry-run (``launch/dryrun.py``) against the card:
    ``torch.library.opcheck`` of the four model kernels' custom ops on real
    inputs at danube's attention shape and mamba2-370m's SSD shape, and
    the host time the dispatcher adds to a call; the card's memory size;
@@ -150,7 +160,7 @@ without the final result line):
    cell on the 256-rank fake production mesh with its probes (ok, FLOPs,
    collectives, live bytes, the reference's 4 microbatches), its record
    written to ``results/dryrun/``;
-18. tp — the model axis split over ranks (``partition.py``'s tensor and
+19. tp — the model axis split over ranks (``partition.py``'s tensor and
    expert parallelism): with two or more cards one rank a card over NCCL
    on a (1, n) mesh (n 2 or 4), with one card two processes on it over
    gloo (``DTensor``'s functional collectives routed through the process
@@ -398,6 +408,24 @@ TP_LEAF_COS = 0.99
 #: How many of the lowest leaf cosines phase "tp" prints, by name.
 TP_LOWEST = 3
 TP_TIMEOUT_S = 600
+
+# Phase "adamw": the kernel against the plain per-leaf loop on danube's and
+# mamba2-370m's parameter sets at full size and on a set of odd sizes (one
+# element, three, none, 4,097, 2^20 + 5, and a leaf 4 bytes past a 16-byte
+# boundary, which takes the scalar loop); three updates on injected scalars
+# (t = 1, 2, 3 of the train phases' AdamW, the gradients clipped by half).
+ADAMW_ODD = (1, 3, 0, 4097, (1 << 20) + 5)
+ADAMW_MISALIGNED = 640
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+ADAMW_UPDATES = 3
+# Per-leaf sums of squares against torch.sum(g.float() ** 2), relative.
+ADAMW_NORM_BAR = 2e-6
+# Bytes an element the two passes need: g read for the norm; g, p, m, v
+# read and p, m, v written for the update.
+ADAMW_BYTES = 32
+# The kernel's three launches, as the profiler names them.
+ADAMW_KERNELS = ("adamw_sq_partials", "adamw_leaf_sums",
+                 "adamw_update_kernel")
 
 # Float32 operations per task row of csrc/dvfs_opt.cu, counted from the
 # source with every add, subtract, multiply, divide, square root, min/max,
@@ -1143,6 +1171,7 @@ def main(argv=None) -> int:
              for arch, kernel, layers in SERVE_ARCHS}
     attn_bwd = attention_bwd_phase(checks, torch, dev, args.seed)
     ssd_bwd = ssd_bwd_phase(checks, torch, dev, args.seed)
+    adamw = adamw_phase(checks, np, torch, dev, args.seed)
     train = train_danube_phase(checks, np, torch, dev, args.seed)
     train_ssm = train_mamba2_phase(checks, np, torch, dev, args.seed)
     train_families = train_families_phase(checks, torch, dev, args.seed)
@@ -1222,7 +1251,15 @@ def main(argv=None) -> int:
            if k not in ("fwd_ms", "fwd_states_ms")},
         "max_abs_err": max(row["max_abs_err"] for row in ssd_bwd.values()),
         "shapes": ssd_bwd, "train": train_ssm,
-        "opcheck": dry["opcheck"]["ssd_scan_bwd"]}]}),
+        "opcheck": dry["opcheck"]["ssd_scan_bwd"]}, {
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the JAX package leaves AdamW to XLA",
+        **adamw[TRAIN_ARCH], "sets": adamw,
+        "launches_train": {"danube": {k: train["launches"][k] for k in (
+            "adamw_sq_norms", "adamw_update")},
+            "mamba2": {k: train_ssm["launches"][k] for k in (
+                "adamw_sq_norms", "adamw_update")}}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1939,12 +1976,14 @@ def ptxas_table(log: str) -> list:
 
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from repro_torch.kernels import dvfs_opt, flash_attention, ssd_scan
+    from repro_torch.kernels import adamw, dvfs_opt, flash_attention, ssd_scan
     return {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
             "flash_attention": flash_attention.flash_attention_cuda,
             "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
             "ssd_scan": ssd_scan.ssd_scan_cuda,
-            "ssd_scan_bwd": ssd_scan.ssd_scan_bwd_cuda}
+            "ssd_scan_bwd": ssd_scan.ssd_scan_bwd_cuda,
+            "adamw_sq_norms": adamw.sq_norms_cuda,
+            "adamw_update": adamw.update_cuda}
 
 
 def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
@@ -2198,6 +2237,160 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
     return out
 
 
+def adamw_leaf_sets() -> dict:
+    """Leaf sizes by set: danube's and mamba2-370m's parameters at full
+    width and depth (their shapes, nothing allocated), and the odd set."""
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models.model import Model
+    out = {"odd": list(ADAMW_ODD) + [ADAMW_MISALIGNED]}
+    for arch in (TRAIN_SSM_ARCH, TRAIN_ARCH):
+        shapes = Model(preset_config(arch, "full"), device="meta").param_shapes()
+        out[arch] = [t.numel() for t in _tensors(shapes)]
+    return out
+
+
+def adamw_leaves(torch, gen, dev, sizes, scale: float, misalign: bool):
+    """Float32 leaves of ``sizes`` on the card, N(0, scale^2); with
+    ``misalign`` the last one is a view 4 bytes past an aligned base."""
+    out = [scale * torch.randn(n, generator=gen, device=dev)
+           for n in (sizes[:-1] if misalign else sizes)]
+    if misalign:
+        base = torch.randn(sizes[-1] + 1, generator=gen, device=dev)
+        out.append(base.mul_(scale)[1:])
+    return out
+
+
+def ulps(torch, a, b) -> int:
+    """The most units in the last place between two float32 tensors of the
+    same signs (their bit patterns as integers)."""
+    if a.numel() == 0:
+        return 0
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def adamw_phase(checks, np, torch, dev, seed: int) -> dict:
+    """AdamW's kernel (``csrc/adamw.cu``) against the plain per-leaf loop:
+    on each leaf set three updates with injected scalars, p, m and v
+    bit-equal, the per-leaf norms within ``ADAMW_NORM_BAR`` of
+    ``torch.sum``; one ``AdamW.update`` on each set through the public
+    path, its launches (3) and gradient copies (0) counted; at danube's
+    1.83B parameters the kernel's time beside its bound, the plain loop's
+    and ``torch._fused_adamw_``'s (a yardstick the port never calls)."""
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim.adamw import AdamW
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, sizes in adamw_leaf_sets().items():
+        odd = name == "odd"
+        n = sum(sizes)
+        p = adamw_leaves(torch, gen, dev, sizes, 0.02, odd)
+        m = adamw_leaves(torch, gen, dev, sizes, 1e-2, odd)
+        v = [t.square_() for t in adamw_leaves(torch, gen, dev, sizes, 1e-2,
+                                               odd)]
+        g = adamw_leaves(torch, gen, dev, sizes, 1e-3, odd)
+        pp, mp, vp = ([t.clone() for t in ts] for ts in (p, m, v))
+        before = ak.launches()
+        for t in range(1, ADAMW_UPDATES + 1):
+            b1, b2 = ADAMW_HYPER["b1"], ADAMW_HYPER["b2"]
+            scalars = torch.tensor([0.5, 1e-3 * t / ADAMW_UPDATES,
+                                    1 - b1 ** t, 1 - b2 ** t],
+                                   dtype=torch.float32, device=dev)
+            ak.update_cuda(g, p, m, v, scalars, **ADAMW_HYPER)
+            ak.update_plain(g, pp, mp, vp, *scalars.unbind(), **ADAMW_HYPER)
+        sq = ak.sq_norms_cuda(g)
+        sq_again = ak.sq_norms_cuda(g)
+        torch.cuda.synchronize()
+        direct = ak.launches() - before
+        unequal = [i for i, (a, b) in enumerate(zip(p + m + v, pp + mp + vp))
+                   if not torch.equal(a, b)]
+        worst = max((ulps(torch, a, b) for a, b in zip(p + m + v, pp + mp + vp)),
+                    default=0)
+        want = torch.stack(ak.sq_norms_plain(g))
+        rel = float(((sq - want).abs() / want.clamp(min=1e-30)).max())
+        repeat = bool(torch.equal(sq, sq_again))
+        del pp, mp, vp
+        checks.expect(not unequal and direct == ADAMW_UPDATES + 4,
+                      f"adamw {name}: {len(unequal)} of {3 * len(sizes)} "
+                      f"leaves differ from the plain loop (at most {worst} "
+                      f"ulps), {direct} launches for {ADAMW_UPDATES} "
+                      "updates and two norms")
+        checks.expect(rel <= ADAMW_NORM_BAR and repeat,
+                      f"adamw {name}: per-leaf norms rel {rel} <= "
+                      f"{ADAMW_NORM_BAR}, repeated bit-equal {repeat}")
+
+        # The public path: the norm, the prologue and the update.
+        opt = AdamW(learning_rate=3e-4)
+        state = opt.init(p)
+        launches, copies = ak.launches(), ak.contiguous_grads.copies
+        _, state, met = opt.update(g, state, p)
+        torch.cuda.synchronize()
+        launches, copies = (ak.launches() - launches,
+                            ak.contiguous_grads.copies - copies)
+        gnorm = float(met["grad_norm"])
+        want_norm = float(torch.sqrt(want.sum()))
+        checks.expect(launches == 3 and copies == 0
+                      and abs(gnorm - want_norm) <= ADAMW_NORM_BAR * want_norm,
+                      f"adamw {name}: AdamW.update launched {launches} "
+                      f"(want 3), copied {copies} gradients (want 0), grad "
+                      f"norm {gnorm} against {want_norm}")
+        row = {"leaves": len(sizes), "elements": n, "bit_equal":
+               not unequal, "max_ulps": worst, "norm_rel": rel,
+               "launches_update": launches, "grad_copies": copies}
+        if name == TRAIN_ARCH:
+            scalars = torch.tensor([0.5, 1e-4, 0.1, 0.05],
+                                   dtype=torch.float32, device=dev)
+
+            def fused():
+                ak.sq_norms_cuda(g)
+                ak.update_cuda(g, p, m, v, scalars, **ADAMW_HYPER)
+
+            def plain():
+                ak.sq_norms_plain(g)
+                ak.update_plain(g, p, m, v, *scalars.unbind(), **ADAMW_HYPER)
+
+            steps = [torch.ones((), device=dev) for _ in p]
+
+            def library():
+                torch._fused_adamw_(
+                    p, g, m, v, [], steps, lr=1e-4, beta1=0.9, beta2=0.95,
+                    weight_decay=0.1, eps=1e-8, amsgrad=False,
+                    maximize=False)
+
+            row["ms"] = event_ms(torch, fused, 10)
+            row["device_ms"] = device_ms(torch, fused, ADAMW_KERNELS, 5)
+            row["update_ms"] = event_ms(
+                torch, lambda: opt.update(g, state, p), 10)
+            row["plain_ms"] = event_ms(torch, plain, 2)
+            try:
+                row["library_ms"] = event_ms(torch, library, 10)
+            except (RuntimeError, TypeError) as err:
+                row["library_ms"] = None
+                print(f"phase adamw: torch._fused_adamw_ not timed: {err}",
+                      flush=True)
+            row["bound_ms"] = n * ADAMW_BYTES / PEAK_BYTES * 1e3
+            row["bound_by"] = "bytes"
+            checks.expect(row["ms"] <= 1.5 * row["bound_ms"],
+                          f"adamw {name}: {row['ms']:.3f} ms, over 1.5x its "
+                          f"bound {row['bound_ms']:.3f} ms")
+        elif name == TRAIN_SSM_ARCH:
+            row["update_ms"] = event_ms(
+                torch, lambda: opt.update(g, state, p), 10)
+        out[name] = row
+        print(f"phase adamw {name}: {len(sizes)} leaves, {n} elements; "
+              f"{ADAMW_UPDATES} updates bit-equal to the plain loop "
+              f"{not unequal} (max {worst} ulps); per-leaf norms rel "
+              f"{rel:.3e}, repeat bit-equal {repeat}; AdamW.update "
+              f"{launches} launches, {copies} gradient copies"
+              + "".join(f"; {k} {row[k]}" for k in (
+                  "ms", "device_ms", "update_ms", "plain_ms", "library_ms",
+                  "bound_ms") if k in row), flush=True)
+        del p, m, v, g, state, sq, sq_again, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def _loss_and_grad_norm(torch, model, params, batch):
     """(loss, global gradient norm) of ``model.loss_fn`` at ``params``,
     leaving ``params`` untouched."""
@@ -2218,6 +2411,7 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
     import tempfile
 
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import adamw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.train import WARMUP, preset_config
@@ -2286,6 +2480,7 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         for fn in counters.values():
             fn.launches = 0
+        copies = adamw.contiguous_grads.copies
         t = time.perf_counter()
         run = run_loop(timed_step, state, data, LoopConfig(
             total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
@@ -2295,16 +2490,20 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = {name: fn.launches for name, fn in counters.items()}
+        grad_copies = adamw.contiguous_grads.copies - copies
     peak = torch.cuda.max_memory_allocated(dev)
     state = run["state"]
     steps_run = run["loss_steps"]
     n = len(steps_run)
     want = {"dvfs_opt": 0, "flash_attention": 2 * L * n,
-            "flash_attention_bwd": L * n, "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "flash_attention_bwd": L * n, "ssd_scan": 0, "ssd_scan_bwd": 0,
+            "adamw_sq_norms": 2 * n, "adamw_update": n}
     checks.expect(launches == want,
                   f"train: launches {launches} over {n} steps, want {want} "
                   "(the forward kernel twice a layer with remat, the "
-                  "backward once)")
+                  "backward once; AdamW's three a step)")
+    checks.expect(grad_copies == 0,
+                  f"train: {grad_copies} gradients copied to be contiguous")
     first, replay = {}, {}
     for i, loss in zip(steps_run, run["losses"]):
         (replay if i in first else first)[i] = loss
@@ -2390,6 +2589,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     ``TRAIN_SSM_STEPS`` steps with the launch counts read around them, and
     one profiled step."""
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import adamw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.train import WARMUP, preset_config
@@ -2442,6 +2642,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
+    copies = adamw.contiguous_grads.copies
     for i in range(TRAIN_SSM_STEPS):
         batch = put(data.batch(i))
         torch.cuda.synchronize()
@@ -2451,15 +2652,21 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
     launches = {name: fn.launches for name, fn in counters.items()}
+    grad_copies = adamw.contiguous_grads.copies - copies
     peak = torch.cuda.max_memory_allocated(dev)
     n = TRAIN_SSM_STEPS
     want = {name: 0 for name in counters}
-    want.update(ssd_scan=2 * L * n, ssd_scan_bwd=L * n)
+    want.update(ssd_scan=2 * L * n, ssd_scan_bwd=L * n,
+                adamw_sq_norms=2 * n, adamw_update=n)
     checks.expect(launches == want,
                   f"train {TRAIN_SSM_ARCH}: launches {launches} over {n} "
                   f"steps, want {want} (the forward kernel twice a layer "
                   "with remat, each time writing its chunk states, the "
-                  "backward once: two kernel launches a call)")
+                  "backward once: two kernel launches a call; AdamW's three "
+                  "a step)")
+    checks.expect(grad_copies == 0,
+                  f"train {TRAIN_SSM_ARCH}: {grad_copies} gradients copied "
+                  "to be contiguous")
     checks.expect(all(math.isfinite(x) for x in losses),
                   f"train {TRAIN_SSM_ARCH}: losses {losses} finite")
 
@@ -2743,10 +2950,12 @@ def mesh_phase(checks, np, torch, dev, seed: int) -> dict:
         # Two Server.run calls (the warm-up and the timed one), a prefill
         # each; the forward twice a layer a step with remat, the backward
         # once.
+        # AdamW: each step's update and the two timed updates alone.
         steps = len(batches)
         want = {"dvfs_opt": 0, "flash_attention": 2 * L + 2 * L * steps,
                 "flash_attention_bwd": L * steps, "ssd_scan": 0,
-                "ssd_scan_bwd": 0}
+                "ssd_scan_bwd": 0, "adamw_sq_norms": 2 * (steps + 2),
+                "adamw_update": steps + 2}
         checks.expect(launches == want,
                       f"mesh: launches {launches} on the mesh path (serve "
                       f"{serve_launches}), want {want}")
@@ -2976,7 +3185,8 @@ def dryrun_phase(checks, np, torch, dev, seed: int) -> dict:
 
     L = cfg.n_layers
     want = {"dvfs_opt": 0, "flash_attention": 2 * L,
-            "flash_attention_bwd": L, "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "flash_attention_bwd": L, "ssd_scan": 0, "ssd_scan_bwd": 0,
+            "adamw_sq_norms": 2, "adamw_update": 1}
     checks.expect(launches == want == plain_launches
                   and math.isfinite(loss) and math.isfinite(plain_loss),
                   f"dryrun: the real steps launched {launches} and "
@@ -3578,7 +3788,8 @@ def tp_phase(checks, np, torch, dev, seed: int, preset: str = "full") -> dict:
     L, Ls = dcfg.n_layers, mcfg.n_layers
     want = {"dvfs_opt": 0, "flash_attention": 3 * L,
             "flash_attention_bwd": L, "ssd_scan": 3 * Ls,
-            "ssd_scan_bwd": Ls}
+            "ssd_scan_bwd": Ls, "adamw_sq_norms": 2 * len(TP_TRAIN),
+            "adamw_update": len(TP_TRAIN)}
     for r in ranks:
         heads = {q[2] for q, _ in r["attn_shapes"]}
         kv = {k[2] for _, k in r["attn_shapes"]}

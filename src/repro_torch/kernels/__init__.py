@@ -8,6 +8,8 @@
   ``csrc/flash_attention_bwd.cu``;
 * ``ssd_scan``        — the Mamba2 SSD chunked scan (ssm-family prefill),
   ``csrc/ssd_scan.cu``;
+* ``adamw``           — AdamW's update and its per-leaf gradient norms over
+  every leaf in one table (training), ``csrc/adamw.cu``;
 * ``build``           — compiles ``csrc/*.cu`` with ``nvcc`` at first use;
 * ``ops``             — the public wrappers and the ``device=`` policy;
 * ``ref``             — the oracles the kernels are held against.
@@ -17,7 +19,8 @@ import these lazily without a cycle.
 
 The model kernels are ``torch.library`` custom operators (namespace
 ``repro_torch``) with fake implementations and FLOP formulas, so a
-``FakeTensorMode`` trace and ``FlopCounterMode`` see them.
+``FakeTensorMode`` trace and ``FlopCounterMode`` see them; AdamW's two
+are operators with fake implementations too.
 
 Kernels take plain local tensors: a ``DTensor`` (a sharded weight of
 ``repro_torch.partition``) that reaches a kernel wrapper raises instead of

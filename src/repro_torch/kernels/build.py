@@ -27,17 +27,18 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("dvfs_opt", "flash_attention", "flash_attention_bwd", "ssd_scan",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "adamw")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 #: sm_90a keeps Hopper-only instructions available.  No --use_fast_math:
 #: division and square root stay IEEE round-to-nearest.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-#: Flags of one kernel only.  dvfs_opt is held bit-equal to its plain torch
-#: version, so -fmad=false keeps every a*b+c there rounded twice; the model
-#: kernels are held at bf16 tolerances and keep FMA contraction.
-KERNEL_FLAGS = {"dvfs_opt": ("-fmad=false",)}
+#: Flags of one kernel only.  dvfs_opt and adamw are held bit-equal to their
+#: plain torch versions, so -fmad=false keeps every a*b+c there rounded
+#: twice; the model kernels are held at bf16 tolerances and keep FMA
+#: contraction.
+KERNEL_FLAGS = {"dvfs_opt": ("-fmad=false",), "adamw": ("-fmad=false",)}
 
 
 def flags(name: str) -> tuple:

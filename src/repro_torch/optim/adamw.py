@@ -11,6 +11,15 @@ float32 parameters and both moments are some 22 GB.
 On ``DTensor`` parameters (``repro_torch.partition``) the moments inherit
 each parameter's placements and the count is replicated on its mesh; the
 update is the same arithmetic on each rank's shards.
+
+Where the leaves lie decides the path, with no fallback between them: CPU
+tensors take the plain loop over the leaves (``kernels.adamw.
+update_plain``); CUDA tensors, or a ``DTensor``'s local CUDA shards, the
+multi-tensor kernel ``csrc/adamw.cu`` (``kernels/adamw.py``): the per-leaf
+sums of squares in two launches, the scalar prologue in torch on the card,
+then the update of every leaf in one launch, bit-equal to the plain loop
+for the same scalars.  Fake and ``meta`` tensors take the kernel's custom
+ops, which launch nothing (the dry-run).
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import partition
+from repro_torch.kernels import OP_DEVICES
+from repro_torch.kernels import adamw as kernel
 
 
 class OptState(NamedTuple):
@@ -47,23 +58,59 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
+def _local(x) -> torch.Tensor:
+    return x.to_local() if partition.is_dtensor(x) else x
+
+
+def _mesh_key(x) -> tuple:
+    """The mesh dims (of more than one rank) that shard a ``DTensor`` leaf;
+    () for a plain tensor or a replicated one."""
+    if not partition.is_dtensor(x):
+        return ()
+    mesh = x.device_mesh
+    return tuple((mesh, i) for i, p in enumerate(x.placements)
+                 if not p.is_replicate() and mesh.size(i) > 1)
+
+
+def _gradients(leaves) -> tuple:
+    """(fused, mesh keys, local tensors) of gradient leaves.  ``fused``:
+    they go to the kernel's ops (CUDA tensors, or the fake or meta tensors
+    of a trace), and their local tensors are then contiguous."""
+    local = [_local(x) for x in leaves]
+    fused = bool(local) and local[0].device.type in OP_DEVICES
+    if fused:
+        local = kernel.contiguous_grads(local)
+    return fused, [_mesh_key(x) for x in leaves], local
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of the sum of squares, in float32, as a
     plain tensor.  A ``DTensor`` leaf's squares are summed on its local
     shard, then over the mesh dims (of more than one rank) that shard it:
     a sharded leaf counts each element once across its shards, a
-    replicated one once in all.  The leaves' sums add in leaf order within
-    each set of such dims, and one all-reduce a mesh dim sums the sets."""
+    replicated one once in all.  The leaves' sums add within each set of
+    such dims (in leaf order on the CPU; on the card as the kernel's
+    vector of per-leaf sums), and one all-reduce a mesh dim sums the
+    sets."""
+    return _global_norm(*_gradients(pytree.tree_leaves(tree)))
+
+
+def _global_norm(fused: bool, keys, local) -> torch.Tensor:
+    """:func:`global_norm` of what :func:`_gradients` returns."""
+    groups = {}
+    for i, key in enumerate(keys):
+        groups.setdefault(key, []).append(i)
     sums = {}
-    for x in pytree.tree_leaves(tree):
-        key = ()
-        if partition.is_dtensor(x):
-            mesh = x.device_mesh
-            key = tuple((mesh, i) for i, p in enumerate(x.placements)
-                        if not p.is_replicate() and mesh.size(i) > 1)
-            x = x.to_local()
-        s = torch.sum(torch.square(x.float()))
-        sums[key] = s if key not in sums else sums[key] + s
+    if fused:
+        order = [i for idx in groups.values() for i in idx]
+        sq = kernel.sq_norms_cuda([local[i] for i in order])
+        parts = ([sq] if len(groups) == 1
+                 else torch.split(sq, [len(idx) for idx in groups.values()]))
+        sums = {key: part.sum() for key, part in zip(groups, parts)}
+    else:
+        for key, idx in groups.items():
+            for s in kernel.sq_norms_plain([local[i] for i in idx]):
+                sums[key] = s if key not in sums else sums[key] + s
     total = 0
     for key, s in sums.items():
         if key:
@@ -101,7 +148,12 @@ class AdamW:
         """Returns (new_params, new_state, metrics): ``params``, ``state.m``
         and ``state.v`` updated in place, and the new count."""
         count = state.count + 1
-        gnorm = global_norm(grads)
+        flat_g, flat_m, flat_v, flat_p = (pytree.tree_leaves(t) for t in (
+            grads, state.m, state.v, params))
+        if not len(flat_g) == len(flat_m) == len(flat_v) == len(flat_p):
+            raise ValueError("grads, moments and params are different trees")
+        fused, keys, local_g = _gradients(flat_g)
+        gnorm = _global_norm(fused, keys, local_g)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -112,17 +164,17 @@ class AdamW:
         c = count.float()
         bc1 = 1.0 - self.b1 ** c
         bc2 = 1.0 - self.b2 ** c
-        flat_g, flat_m, flat_v, flat_p = (pytree.tree_leaves(t) for t in (
-            grads, state.m, state.v, params))
-        if not len(flat_g) == len(flat_m) == len(flat_v) == len(flat_p):
-            raise ValueError("grads, moments and params are different trees")
-        for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
-            g = g if scale is None else g * scale
-            g = g.float()
-            m.copy_(self.b1 * m + (1 - self.b1) * g)
-            v.copy_(self.b2 * v + (1 - self.b2) * torch.square(g))
-            step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            step = step + self.weight_decay * p.float()
-            p.copy_((p.float() - lr * step).to(p.dtype))
+        hyper = dict(b1=self.b1, b2=self.b2, eps=self.eps,
+                     wd=self.weight_decay)
+        if fused:
+            one = torch.ones((), dtype=torch.float32, device=gnorm.device)
+            scalars = torch.stack([_local(x).float() for x in (
+                one if scale is None else scale, lr, bc1, bc2)])
+            kernel.update_cuda(local_g, [_local(p) for p in flat_p],
+                               [_local(m) for m in flat_m],
+                               [_local(v) for v in flat_v], scalars, **hyper)
+        else:
+            kernel.update_plain(flat_g, flat_p, flat_m, flat_v, scale, lr,
+                                bc1, bc2, **hyper)
         return params, OptState(state.m, state.v, count), {
             "grad_norm": gnorm, "lr": lr}

@@ -27,7 +27,8 @@ Under a ``torch.profiler`` a step records its spans (``repro_torch.spans``):
 around ``train.batch`` (the batch onto the device and this rank's shard),
 ``train.forward`` (``Model.loss_fn``), ``train.backward``
 (``torch.autograd.grad``, the remat recompute included) and
-``train.optimizer`` {``leaves``, ``elements``} (``AdamW.update``); with
+``train.optimizer`` {``leaves``, ``elements``, ``launches``: the AdamW
+kernel's launches, 3 on the card, 0 on the CPU} (``AdamW.update``); with
 microbatches, forward and backward under ``train.microbatch`` {``mb``}.
 ``train.backward`` and ``train.optimizer`` also time themselves on the card
 (``timed``).
@@ -42,6 +43,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import partition, spans
+from repro_torch.kernels import adamw as adamw_kernel
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.optim.compression import compress_int8, decompress_int8
@@ -188,8 +190,11 @@ def make_train_step(model: Model, optimizer: AdamW, *,
                 leaves = pytree.tree_leaves(grads)
                 s.attrs.update(leaves=len(leaves),
                                elements=sum(g.numel() for g in leaves))
+                launched = adamw_kernel.launches()
             new_params, new_opt, opt_metrics = optimizer.update(
                 grads, state.opt, params)
+            if s is not None:
+                s.attrs["launches"] = adamw_kernel.launches() - launched
         if ranks > 1:
             loss = partition.mesh_sum(loss.clone(),
                                       partition.grad_dims()) / ranks

@@ -245,7 +245,7 @@ def test_ptxas_table_reads_each_kernel():
 def test_build_paths_follow_the_source():
     assert build.KERNELS == ("dvfs_opt", "flash_attention",
                              "flash_attention_bwd", "ssd_scan",
-                             "ssd_scan_bwd")
+                             "ssd_scan_bwd", "adamw")
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR
@@ -255,5 +255,6 @@ def test_build_paths_follow_the_source():
         flags = build.flags(name)
         assert "arch=compute_90a,code=sm_90a" in flags
         assert "--use_fast_math" not in flags
-        # Only the bit-equal scheduler kernel gives up FMA contraction.
-        assert ("-fmad=false" in flags) == (name == "dvfs_opt")
+        # Only the two kernels held bit-equal to their plain versions, the
+        # scheduler's and AdamW's, give up FMA contraction.
+        assert ("-fmad=false" in flags) == (name in ("dvfs_opt", "adamw"))

@@ -89,7 +89,8 @@ def test_a_dense_step_with_remat_nests_its_spans():
     (opt,) = [r for r in recs if r.name == "train.optimizer"]
     leaves = pytree.tree_leaves(state.params)
     assert opt.attrs == {"leaves": len(leaves),
-                         "elements": sum(p.numel() for p in leaves)}
+                         "elements": sum(p.numel() for p in leaves),
+                         "launches": 0}   # the plain loop on the CPU
     layers = collections.Counter(
         (r.attrs["layer"], r.parent.name) for r in recs
         if r.name == "model.layer")

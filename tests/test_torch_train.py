@@ -36,6 +36,7 @@ from repro_torch.convert import (model_params_from_arrays,  # noqa: E402
                                  model_params_to_arrays,
                                  train_state_from_arrays)
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
+from repro_torch.kernels import adamw as adamw_kernel  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.model import Model, chunked_cross_entropy  # noqa: E402
@@ -227,6 +228,165 @@ def test_adamw_update_matches_reference():
         want = jax.tree.leaves(jax.tree.map(np.asarray, want_tree))
         for g, w in zip(got, want):
             assert np.abs(g - w).max() <= 1e-6 * np.abs(w).max()
+
+
+def _mixed_sizes(n_leaves: int, chunk: int) -> list:
+    """``n_leaves`` sizes drawn around ``chunk``: empty leaves, single
+    elements, counts that are no multiple of 4, whole and ragged chunks."""
+    rng = np.random.default_rng(n_leaves)
+    picks = (0, 1, 3, chunk - 1, chunk, chunk + 1, 4 * chunk + 5)
+    return [int(rng.choice(picks)) if rng.random() < 0.5
+            else int(rng.integers(0, 5 * chunk)) for _ in range(n_leaves)]
+
+
+@pytest.mark.parametrize("chunk", [adamw_kernel.CHUNK, 64])
+@pytest.mark.parametrize("n_leaves", [1, 2, 37, 500])
+def test_chunk_table_covers_every_element_once(n_leaves, chunk):
+    """The kernel's chunk table (a pure function of the leaves' sizes) and
+    its chunk-to-leaf search: every element of every leaf in exactly one
+    chunk, no chunk for an empty leaf, none longer than ``chunk``."""
+    sizes = _mixed_sizes(n_leaves, chunk)
+    if n_leaves == 1:
+        sizes = [2 * chunk + 3]
+    first = adamw_kernel.chunk_table(sizes, chunk)
+    assert first[0] == 0 and len(first) == n_leaves + 1
+    spans = {}
+    for c in range(int(first[-1])):
+        leaf, start, count = adamw_kernel.chunk_span(first, sizes, c, chunk)
+        assert 0 < count <= chunk and start % chunk == 0
+        spans.setdefault(leaf, []).append((start, count))
+    for leaf, size in enumerate(sizes):
+        covered = 0
+        for start, count in sorted(spans.get(leaf, [])):
+            assert start == covered
+            covered += count
+        assert covered == size
+    assert all(sizes[leaf] > 0 for leaf in spans)
+
+
+class _OpNames(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the name of every operator dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_adamw_traces_the_kernel_op_under_fake_tensors():
+    """On fake CUDA tensors (the dry-run), ``AdamW.update`` calls the
+    kernel's ops, launches nothing and takes none of the plain loop's
+    per-leaf arithmetic; every leaf keeps its shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    before = adamw_kernel.launches()
+    shapes = [(5, 7), (3,), (0,), (2, 4, 8)]
+    opt = AdamW(learning_rate=cosine_schedule(1e-2, 3, 10), clip_norm=1.0)
+    with FakeTensorMode():
+        params = [torch.empty(s, device="cuda") for s in shapes]
+        grads = [torch.empty(s, device="cuda") for s in shapes]
+        state = opt.init(params)
+        with _OpNames() as ops:
+            new, new_state, met = opt.update(grads, state, params)
+    assert adamw_kernel.launches() == before
+    assert ops.names.count("repro_torch.adamw_sq_norms.default") == 1
+    assert ops.names.count("repro_torch.adamw_update.default") == 1
+    # The plain loop writes each leaf's m, v and p with ``copy_``.
+    assert "aten.copy_.default" not in ops.names, ops.names
+    for tree in (new, new_state.m, new_state.v):
+        assert [(tuple(t.shape), t.dtype) for t in tree] == [
+            (s, torch.float32) for s in shapes]
+    assert new_state.count.dtype == torch.int32
+    assert met["grad_norm"].shape == () and met["lr"].shape == ()
+
+
+@pytest.mark.parametrize("bad", ["p bf16", "m transposed", "v short",
+                                 "g transposed"])
+def test_adamw_kernel_wrappers_refuse_what_the_kernel_does_not_take(bad):
+    """p, m and v must be contiguous float32 leaves of g's sizes (checked
+    on ``meta`` tensors, which the ops take without a card); a
+    non-contiguous gradient is refused by the wrappers and copied, and
+    counted, by ``contiguous_grads``."""
+    def leaves():
+        return [torch.empty((4, 6), device="meta"),
+                torch.empty((5,), device="meta")]
+
+    g, p, m, v = leaves(), leaves(), leaves(), leaves()
+    name, how = bad.split()
+    tree = {"g": g, "p": p, "m": m, "v": v}[name]
+    tree[0] = {"bf16": tree[0].bfloat16(), "transposed": tree[0].t(),
+               "short": tree[0][:3]}[how]
+    scalars = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match=f"{name}\\[0\\] must be a "
+                                         "contiguous float32"):
+        adamw_kernel.update_cuda(g, p, m, v, scalars, b1=0.9, b2=0.95,
+                                 eps=1e-8, wd=0.1)
+    if name == "g":
+        with pytest.raises(ValueError, match="must be a contiguous"):
+            adamw_kernel.sq_norms_cuda(g)
+        copies = adamw_kernel.contiguous_grads.copies
+        dense = adamw_kernel.contiguous_grads(g)
+        assert adamw_kernel.contiguous_grads.copies == copies + 1
+        assert dense[0].is_contiguous() and dense[1] is g[1]
+        assert adamw_kernel.sq_norms_cuda(dense).shape == (2,)
+
+
+def test_adamw_on_the_cpu_never_loads_the_kernel(monkeypatch):
+    """CPU tensors take the plain loop: the kernel's library is never
+    built or loaded, and nothing is counted."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name}")
+
+    monkeypatch.setattr(adamw_kernel.build, "load", refuse)
+    before = adamw_kernel.launches()
+    opt = AdamW(learning_rate=1e-2)
+    params = [torch.ones(3, 5), torch.ones(7)]
+    state = opt.init(params)
+    new, _, met = opt.update([torch.full((3, 5), 0.5), torch.ones(7)],
+                             state, params)
+    assert adamw_kernel.launches() == before
+    assert float(met["grad_norm"]) == pytest.approx(np.sqrt(15 * 0.25 + 7))
+    assert all(bool((p < 1).all()) for p in new)
+
+
+@pytest.mark.card
+def test_adamw_kernel_is_bit_equal_to_the_plain_loop_on_the_card():
+    """On the card: three updates of a small mixed set of leaves (empty,
+    odd sizes, a 16-byte misaligned view) through the kernel and through
+    the plain loop with the same scalars, p, m and v bit-equal; the
+    per-leaf norms within 2e-6 of ``torch.sum``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sizes = (1, 3, 0, 4097, adamw_kernel.CHUNK + 5, 640)
+    base = torch.randn(sizes[-1] + 1, generator=gen, device=dev)
+
+    def leaves(scale):
+        out = [scale * torch.randn(n, generator=gen, device=dev)
+               for n in sizes[:-1]]
+        return out + [scale * base[1:]]   # 4 bytes past an aligned base
+
+    p, m, g = leaves(0.02), leaves(1e-2), leaves(1e-3)
+    v = [torch.square(t) for t in leaves(1e-2)]
+    pp, mp, vp = ([t.clone() for t in ts] for ts in (p, m, v))
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    launches = adamw_kernel.launches()
+    for t in (1, 2, 3):
+        scalars = torch.tensor([0.5, 1e-3 * t, 1 - 0.9 ** t, 1 - 0.95 ** t],
+                               dtype=torch.float32, device=dev)
+        adamw_kernel.update_cuda(g, p, m, v, scalars, **hyper)
+        adamw_kernel.update_plain(g, pp, mp, vp, scalars[0], scalars[1],
+                                  scalars[2], scalars[3], **hyper)
+    sq = adamw_kernel.sq_norms_cuda(g)
+    torch.cuda.synchronize()
+    assert adamw_kernel.launches() - launches == 3 + 2
+    for a, b in zip(p + m + v, pp + mp + vp):
+        assert torch.equal(a, b)
+    want = torch.stack(adamw_kernel.sq_norms_plain(g))
+    assert torch.allclose(sq, want, rtol=2e-6, atol=0)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base",
