@@ -228,15 +228,22 @@ PEAK_BYTES = 3.35e12
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 CONSIST_REQUESTS, CONSIST_STEPS = 2, 4
 DECODE_PROFILE = 8   # decode steps under the profiler
-# (arch, family kernel, layers kept or None for all): moonshot-v1-16b-a3b
-# keeps 16 of its 48 layers at full width, 9.8 B parameters, 59 GB as
-# float32 master weights plus their bf16 serving copy.
-SERVE_ARCHS = (("h2o-danube-1.8b", "flash_attention", None),
-               ("mamba2-370m", "ssd_scan", None),
-               ("recurrentgemma-2b", "flash_attention", None),
-               ("whisper-base", "flash_attention", None),
-               ("internvl2-2b", "flash_attention", None),
-               ("moonshot-v1-16b-a3b", "flash_attention", 16))
+# (arch, layers kept or None for all): moonshot-v1-16b-a3b keeps 16 of its
+# 48 layers at full width, 9.8 B parameters, 59 GB as float32 master
+# weights plus their bf16 serving copy.  Which kernels an arch launches,
+# and how often, ``kernel_calls`` says (granite-4.0-h-micro runs both: 36
+# SSD layers, 4 attention layers).
+SERVE_ARCHS = (("h2o-danube-1.8b", None),
+               ("mamba2-370m", None),
+               ("recurrentgemma-2b", None),
+               ("whisper-base", None),
+               ("internvl2-2b", None),
+               ("moonshot-v1-16b-a3b", 16),
+               ("granite-4.0-h-micro", None))
+# Archs with a plain float32 reference in the benchmark
+# (``bench/reference/<family>.py``), whose served logits the serve phase
+# holds to the reference's full forward: the family module's name.
+REFERENCE_ARCHS = {"granite-4.0-h-micro": "ssm_hybrid"}
 # Kernel phases: (B, S, H, KV, dh, window) causal attention at danube's
 # serving shape and at a length where the window skips blocks; (B, S, H,
 # P, N) of the SSD scan at mamba2-370m's serving shape.
@@ -258,8 +265,10 @@ ATTN_HEAD_DIMS = (("dh64", (2, 1000, 8, 8, 64, 100)),
 # local attention (dh 256, MQA), whisper-base's encoder and cross-attention
 # over its 1,500 frames, internvl2-2b's image prefix, then a ragged input at
 # dh 256 whose window ends inside a 64-key tile, and the padded head dims:
-# every reduced config's 16 (ragged, window) and stablelm-12b's 160.  All
-# with q x ATTN_EDGE_Q_SCALE, so that a key too many or too few moves rows.
+# every reduced config's 16 (ragged, window) and stablelm-12b's 160; last,
+# granite-4.0-h-micro's training shape, full causal over 16,384 keys at dh
+# 64 with its own scale (ATTN_SCALES).  All with q x ATTN_EDGE_Q_SCALE, so
+# that a key too many or too few moves rows.
 ATTN_FAMILY_SHAPES = (
     ("recurrentgemma", (8, 2048, 2048, 10, 1, 256), True, 2048, 0),
     ("dh256_edge", (2, 1000, 1000, 10, 1, 256), True, 100, 0),
@@ -267,8 +276,19 @@ ATTN_FAMILY_SHAPES = (
     ("whisper_cross", (8, 2048, 1500, 8, 8, 64), False, None, 0),
     ("internvl_prefix", (8, 2048, 2048, 16, 8, 128), True, None, 256),
     ("dh16_padded", (2, 1000, 1000, 8, 2, 16), True, 100, 0),
-    ("dh160_padded", (8, 2048, 2048, 32, 8, 160), True, None, 0))
+    ("dh160_padded", (8, 2048, 2048, 32, 8, 160), True, None, 0),
+    ("granite", (1, 16384, 16384, 32, 8, 64), True, None, 0))
+# The softmax scale of a shape whose model sets its own (else dh ** -0.5):
+# granite-4.0-h-micro's attention_multiplier, 1/64 at dh 64 (an eighth of
+# the default).  Its q is scaled up by the same factor, so that the scores
+# keep ATTN_EDGE_Q_SCALE's spread and the mask faults still show; a kernel
+# that ignored the scale would then see scores eight times too wide.
+ATTN_SCALES = {"granite": 1 / 64}
 SSD_SHAPE = (8, 2048, 32, 64, 128)
+# granite-4.0-h-micro's training shape of the SSD scan: B 1, S 16,384, 64
+# heads of 64 (d_inner 4,096), state 128; the 32 blocks of one batch row's
+# heads, where mamba2-370m's shape gives 256.
+SSD_HYBRID_SHAPE = (1, 16384, 64, 64, 128)
 # (P, N) the SSD wrapper zero-pads to (64, 128): the reduced mamba2-370m's
 # (16, 16) and the 100m preset's (16, 64), at B 8, S 2048 and the presets'
 # head counts.
@@ -286,10 +306,12 @@ SSD_INIT_LEN = 256   # tokens of the segment that starts from a state
 # roundings land on other values; where an output is a cancelling sum its
 # error shows against the RMS floor.  Readings on an H100 at 700 W
 # (chip_smoke.py, one run): attention 1.6e-2 (serve), 1.4e-2 (long), 6.6e-3
-# (edge), 5.9e-3 (dh 64 and dh 128), 1.1e-2 at the worst danube layer; SSD
-# 1.7e-2 (y), 1.2e-2 (final state), 2.7e-2 at the worst mamba2 layer.  Each
-# bar is three to four times the largest reading, and the plain renderings
-# of the faults it guards against read 0.68-31 against it.
+# (edge), 5.9e-3 (dh 64 and dh 128), 1.1e-2 at the worst danube layer, 8.3e-3
+# at granite-4.0-h-micro's 16,384 keys and scale 1/64; SSD 1.7e-2 (y),
+# 1.2e-2 (final state), 1.7e-2 and 1.3e-2 at granite's B 1 x H 64 x S
+# 16,384, 2.7e-2 at the worst mamba2 layer.  Each bar is three to four
+# times the largest reading, and the plain renderings of the faults it
+# guards against read 0.68-31 against it.
 ATTN_BAR, SSD_BAR = 6e-2, 8e-2
 # The model's whole prefill through the kernels against the same prefill
 # through the plain versions, same weights and tokens: max |difference| over
@@ -309,6 +331,16 @@ PLAIN_PATH_BAR = 1e-1
 # package's own check (tests/test_decode_consistency.py) allows 0.05
 # absolute on reduced-config logits whose max is about 0.57, i.e. ~9%.
 CONSIST_BAR = 1e-1
+# Served logits (a prefill, then decode steps through the cache) against the
+# plain float32 reference's full forward (``REFERENCE_ARCHS``): max |served -
+# reference| over max |reference| of each step.  The served side rounds its
+# weights and every activation, the residual stream included, to bf16 (a
+# relative 2^-9 each), and the roundings compound through the depth as they
+# do between prefill and decode above: ``tests/test_torch_hybrid.py`` reads
+# 2.4e-3 to 3.6e-3 at reduced width (10 layers) on the CPU and allows 1.2e-2;
+# at 40 layers of full width the bar is CONSIST_BAR's, the gap two bf16
+# renderings of one model may show at full depth.
+REFERENCE_BAR = CONSIST_BAR
 # The moe family's prefill against decode: the same bar times the JAX
 # package's own allowance for capacity routing (tests/test_decode_consistency
 # .py allows 0.15 for moe against 0.05 for every other family).  A prefill
@@ -323,7 +355,8 @@ MOE_CONSIST_BAR = 3e-1
 # window, prefix), all with q x ATTN_EDGE_Q_SCALE so that a key too many or
 # too few moves rows: h2o-danube-1.8b's training shape (its window 4096 is
 # longer than the sequence), the shapes the other families give the forward
-# kernel, and a ragged edge input at dh 80.
+# kernel, a ragged edge input at dh 80, and granite-4.0-h-micro's training
+# shape (full causal over 16,384 keys at its scale, ATTN_SCALES).
 ATTN_BWD_SHAPES = (
     ("danube", (8, 2048, 2048, 32, 8, 80), True, 4096, 0),
     ("recurrentgemma", (8, 2048, 2048, 10, 1, 256), True, 2048, 0),
@@ -332,37 +365,43 @@ ATTN_BWD_SHAPES = (
     ("internvl_prefix", (8, 2048, 2048, 16, 8, 128), True, None, 256),
     ("dh16_padded", (2, 1000, 1000, 8, 2, 16), True, 100, 0),
     ("dh160_padded", (8, 2048, 2048, 32, 8, 160), True, None, 0),
-    ("edge", (2, 1000, 1000, 32, 8, 80), True, 100, 0))
+    ("edge", (2, 1000, 1000, 32, 8, 80), True, 100, 0),
+    ("granite", (1, 16384, 16384, 32, 8, 64), True, None, 0))
 # Backward kernel against its plain version, bf16, the normalised error of
 # each of dq, dk, dv.  The two round P and dS to bf16 at the same places but
 # take exp2 against exp and sum in other orders; dq sums over the most keys.
 # Readings on an H100 at 700 W (chip_smoke.py, one run, these shapes): dq
-# 5.3e-3 to 2.1e-2, dk 3.4e-3 to 2.0e-2, dv 2.7e-3 to 1.3e-2.  The bar is
-# four times the largest; the plain renderings of the faults read 0.67-48
-# against it.
+# 5.3e-3 to 2.1e-2, dk 3.4e-3 to 2.0e-2, dv 2.7e-3 to 1.3e-2 (granite's:
+# 1.9e-2, 1.2e-2, 1.1e-2).  The bar is four times the largest; the plain
+# renderings of the faults read 0.67-48 against it.
 ATTN_BWD_BAR = 8e-2
 
 # The SSD backward phase: mamba2-370m's training shape (B 8, S 2048, H 32,
 # P 64, N 128), from zero and with a final-state cotangent; a 256-token
 # segment from a state; a ragged S; the padded (P, N) of the smoke and 100m
-# presets.  (name, (B, S, H, P, N), initial state, final-state cotangent)
+# presets; granite-4.0-h-micro's training shape (SSD_HYBRID_SHAPE, from
+# zero, its final state unused).  (name, (B, S, H, P, N), initial state,
+# final-state cotangent)
 SSD_BWD_SHAPES = (
     ("train", (8, 2048, 32, 64, 128), False, False),
     ("train_dfinal", (8, 2048, 32, 64, 128), False, True),
     ("segment_from_state", (8, SSD_INIT_LEN, 32, 64, 128), True, True),
     ("ragged", (2, 1000, 32, 64, 128), True, True),
     ("pad_p16_n16", (8, 2048, 8, 16, 16), False, False),
-    ("pad_p16_n64", (8, 2048, 64, 16, 64), True, True))
+    ("pad_p16_n64", (8, 2048, 64, 16, 64), True, True),
+    ("granite", SSD_HYBRID_SHAPE, False, False))
 # Backward kernel against ssd_scan_bwd_plain at KERNEL_CHUNK, bf16, the
 # normalised error of each of dx, ddt, da, db, dc and dinit; a ragged S goes
 # to the plain version padded with tokens of dt = 0 to whole chunks, so
 # that both chunk at 64.  The two round the same operands to bf16 but sum
 # in other orders (mma tiles against einsums, the heads' dB and dC sums in
 # another order) and take exp2 against exp.  Readings on an H100 at 700 W
-# (chip_smoke.py, one run, these shapes): at most 1.31e-2 (dx), 9.8e-3 at
-# the ragged S (2.50e-2 there while the plain version shrank its chunk to
-# 50 tokens to divide S).  The bar is three times the largest; the plain
-# renderings of the faults (ssd_bwd_faults) read 0.36-8.8 against it.
+# (chip_smoke.py, these shapes): at most 2.33e-2 (dx at granite's shape in
+# a whole run, 1.44e-2 on another draw; 1.31e-2 at mamba2's), 9.8e-3 at the
+# ragged S (2.50e-2 there while the plain version shrank its chunk to 50
+# tokens to divide S).  The bar was set at three times mamba2's largest and
+# is 1.7 times granite's; the plain renderings of the faults
+# (ssd_bwd_faults) read 0.36-8.8 against it.
 SSD_BWD_BAR = 4e-2
 # The backward's two launches, as the profiler names them.
 SSD_BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_chunk")
@@ -385,7 +424,8 @@ TRAIN_LOSS_BAR, TRAIN_GNORM_BAR = 2e-3, 2e-2
 TRAIN_SSM_ARCH, TRAIN_SSM_STEPS = "mamba2-370m", 5
 # One smoke-preset step of each other family on the card.
 TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "recurrentgemma-2b",
-                      "whisper-base", "internvl2-2b", "mamba2-370m")
+                      "whisper-base", "internvl2-2b", "mamba2-370m",
+                      "granite-4.0-h-micro")
 TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 4, 64
 # The dry-run's estimate against the card: h2o-danube-1.8b's train_4k cell
 # at B 4 (16,384 tokens a step, phase "train"'s count) traced on a fake
@@ -806,10 +846,12 @@ def sdpa_mask(torch, Sq, Sk, causal, window, prefix, device):
     return mask
 
 
-def sdpa_ms(torch, q, k, v, causal, window, prefix=0, backend=False):
-    """Time of one ``scaled_dot_product_attention`` call on the same inputs
-    and mask (GQA through ``enable_gqa``), or None if this torch has no such
-    call for them; with ``backend``, (time, the backend's operator that the
+def sdpa_ms(torch, q, k, v, causal, window, prefix=0, backend=False,
+            scale=None):
+    """Time of one ``scaled_dot_product_attention`` call on the same inputs,
+    mask and scale (GQA through ``enable_gqa``), or None if this torch has
+    no such call for them; with ``backend``, (time, the backend's operator
+    that the
     dispatcher called, as ``torch.profiler`` shows it: flash, efficient,
     cudnn or math attention).  A yardstick only: the port never calls it."""
     import torch.nn.functional as F
@@ -820,7 +862,7 @@ def sdpa_ms(torch, q, k, v, causal, window, prefix=0, backend=False):
     def call():
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+            scale=scale, enable_gqa=True)
 
     try:
         ms = event_ms(torch, call, 20)
@@ -838,10 +880,10 @@ def sdpa_ms(torch, q, k, v, causal, window, prefix=0, backend=False):
     return ms, "+".join(ops) or "not seen by the profiler"
 
 
-def sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix=0):
+def sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix=0, scale=None):
     """Time of the backward alone of one ``scaled_dot_product_attention``
-    call on the same inputs and mask (GQA through ``enable_gqa``), or None
-    if this torch has none for them.  A yardstick only."""
+    call on the same inputs, mask and scale (GQA through ``enable_gqa``), or
+    None if this torch has none for them.  A yardstick only."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -850,7 +892,7 @@ def sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix=0):
     try:
         out = F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+            scale=scale, enable_gqa=True)
         dot = do.transpose(1, 2)
         return event_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), 10)
@@ -1163,12 +1205,14 @@ def main(argv=None) -> int:
 
     attn = attention_phase(checks, torch, dev, args.seed)
     ssd = ssd_phase(checks, torch, dev, args.seed)
+    ssd_hybrid = ssd_phase(checks, torch, dev, args.seed, "granite",
+                           SSD_HYBRID_SHAPE)
     attn_family = family_attention_phase(checks, torch, dev, args.seed)
     ssd_pad = ssd_pad_phase(checks, torch, dev, args.seed)
     jobs = jobs_phase(checks, torch, dev)
-    serve = {arch: serve_phase(checks, np, torch, dev, arch, kernel, layers,
+    serve = {arch: serve_phase(checks, np, torch, dev, arch, layers,
                                args.seed)
-             for arch, kernel, layers in SERVE_ARCHS}
+             for arch, layers in SERVE_ARCHS}
     attn_bwd = attention_bwd_phase(checks, torch, dev, args.seed)
     ssd_bwd = ssd_bwd_phase(checks, torch, dev, args.seed)
     adamw = adamw_phase(checks, np, torch, dev, args.seed)
@@ -1209,8 +1253,8 @@ def main(argv=None) -> int:
         **attn["serve"], **serve["h2o-danube-1.8b"],
         "long_8192": attn["long"], "edge": attn["edge"],
         **{key: attn[key] for key, _ in ATTN_HEAD_DIMS}, **attn_family,
-        "serve": {arch: serve[arch] for arch, kernel, _ in SERVE_ARCHS
-                  if kernel == "flash_attention"},
+        "serve": {arch: serve[arch] for arch, _ in SERVE_ARCHS
+                  if "flash_attention" in serve[arch]["launches"]},
         "launches_train": train["launches"]["flash_attention"],
         "launches_mesh": mesh["launches"]["flash_attention"],
         "launches_dryrun": dry["launches"]["flash_attention"],
@@ -1236,7 +1280,9 @@ def main(argv=None) -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        **ssd, **serve["mamba2-370m"], **ssd_pad,
+        **ssd, **serve["mamba2-370m"], **ssd_pad, "granite": ssd_hybrid,
+        "serve": {arch: serve[arch] for arch, _ in SERVE_ARCHS
+                  if "ssd_scan" in serve[arch]["launches"]},
         "launches_train": train_ssm["launches"]["ssd_scan"],
         "launches_tp": [r["ssd_scan"] for r in tp.get("launches", [])],
         "fwd_states_ms": ssd_bwd["train"]["fwd_states_ms"],
@@ -1362,26 +1408,33 @@ def attention_phase(checks, torch, dev, seed: int) -> dict:
 def family_attention_phase(checks, torch, dev, seed: int) -> dict:
     """The attention kernel against its plain version at the shapes of
     ``ATTN_FAMILY_SHAPES``, with plain renderings of the faults each shape
-    can show, each timed beside the plain version, SDPA and the bound."""
+    can show, each timed beside the plain version, SDPA and the bound;
+    at a shape of ``ATTN_SCALES``, with that scale throughout."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     out = {}
     for key, (B, Sq, Sk, H, KV, dh), causal, window, prefix in (
             ATTN_FAMILY_SHAPES):
+        scale = ATTN_SCALES.get(key)
+        q_scale = ATTN_EDGE_Q_SCALE * (1.0 if scale is None
+                                       else dh ** -0.5 / scale)
         q = torch.randn((B, Sq, H, dh), generator=gen, device=dev)
-        q = (q * ATTN_EDGE_Q_SCALE).to(torch.bfloat16)
+        q = (q * q_scale).to(torch.bfloat16)
         k, v = (torch.randn((B, Sk, KV, dh), generator=gen,
                             device=dev).to(torch.bfloat16) for _ in range(2))
 
-        def plain(q_, k_, v_, causal_=causal, window_=window, prefix_=prefix):
+        def plain(q_, k_, v_, causal_=causal, window_=window, prefix_=prefix,
+                  scale_=scale):
             return fa.flash_attention_plain(q_, k_, v_, causal=causal_,
                                             window=window_,
-                                            bidirectional_prefix=prefix_)
+                                            bidirectional_prefix=prefix_,
+                                            scale=scale_)
 
         def kernel():
             return fa.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, prefix=prefix)
+                                           window=window, prefix=prefix,
+                                           scale=scale)
 
         got, want = kernel(), plain(q, k, v)
         err = norm_err(got, want)
@@ -1420,6 +1473,9 @@ def family_attention_phase(checks, torch, dev, seed: int) -> dict:
                 plain(q, k[:, :-1], v[:, :-1]), want)
             faults["causal mask taken"] = norm_err(
                 plain(q, k, v, causal_=True), want)
+        if scale is not None:
+            faults["default scale"] = norm_err(plain(q, k, v, scale_=None),
+                                               want)
         checks.expect(min(faults.values()) > ATTN_BAR,
                       f"attention {key}: every fault's norm err {faults} "
                       f"exceeds the bar {ATTN_BAR}")
@@ -1427,7 +1483,7 @@ def family_attention_phase(checks, torch, dev, seed: int) -> dict:
         k_ms = event_ms(torch, kernel, 20)
         p_ms = event_ms(torch, lambda: plain(q, k, v), 3)
         lib_ms, backend = sdpa_ms(torch, q, k, v, causal, window, prefix,
-                                  backend=True)
+                                  backend=True, scale=scale)
         b_ms, b_by = attention_bound(B, H, KV, Sq, dh, causal, window, Sk,
                                      prefix)
         out[key] = {"max_abs_err": abs_err, "norm_err": err, "ms": k_ms,
@@ -1436,13 +1492,15 @@ def family_attention_phase(checks, torch, dev, seed: int) -> dict:
                     "fault_norm_errs": faults,
                     "shape": [B, Sq, Sk, H, KV, dh,
                               "causal" if causal else "non-causal", window,
-                              prefix, f"q x{ATTN_EDGE_Q_SCALE}"],
+                              prefix, f"q x{q_scale}"],
+                    "scale": dh ** -0.5 if scale is None else scale,
                     "kernel_head_dim": fa.kernel_head_dim(dh)}
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms ({backend})"
         print(f"phase attention kernel {key}: B {B} Sq {Sq} Sk {Sk} H {H} KV "
               f"{KV} dh {dh} (kernel dh {fa.kernel_head_dim(dh)}) "
               f"{'causal' if causal else 'non-causal'} window {window} "
-              f"prefix {prefix}, q x{ATTN_EDGE_Q_SCALE}: norm err {err:.3e}, "
+              f"prefix {prefix}, scale {out[key]['scale']}, q x{q_scale}: "
+              f"norm err {err:.3e}, "
               f"max abs err {abs_err:.3e}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, sdpa {lib}, bound {b_ms:.4f} ms ({b_by}), "
               f"kernel at {b_ms / k_ms:.1%} of the bound; plain renderings "
@@ -1557,15 +1615,16 @@ def jobs_phase(checks, torch, dev) -> dict:
     return {"launches_jobs": launches, "jobs_e_rel": e_rel}
 
 
-def ssd_phase(checks, torch, dev, seed: int) -> dict:
-    """The SSD kernel against its plain version at mamba2-370m's serving
-    shape, x/b/c as strided slices of one activation as the model passes
-    them, without and with an initial state; plain renderings of carry
-    faults show what the bar catches; both versions timed beside the
-    bound."""
+def ssd_phase(checks, torch, dev, seed: int, key: str = "mamba2",
+              shape: tuple = SSD_SHAPE) -> dict:
+    """The SSD kernel against its plain version at ``shape`` (B, S, H, P,
+    N), mamba2-370m's serving shape by default, x/b/c as strided slices of
+    one activation as the model passes them, without and with an initial
+    state; plain renderings of carry faults show what the bar catches; both
+    versions timed beside the bound."""
     from repro_torch.kernels import ssd_scan as ss
 
-    B, S, H, P, N = SSD_SHAPE
+    B, S, H, P, N = shape
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
                       device=dev).to(torch.bfloat16)
@@ -1581,7 +1640,7 @@ def ssd_phase(checks, torch, dev, seed: int) -> dict:
         dt_bias + 0.5 * torch.randn((B, S, H), generator=gen, device=dev))
     a = -torch.linspace(*SSD_A_RANGE, H, device=dev)
 
-    def compare(key, init, n=S):
+    def compare(what, init, n=S):
         args = (x[:, :n], dt[:, :n], a, b[:, :n], c[:, :n])
         y, fin = ss.ssd_scan_cuda(*args, init)
         y_ref, fin_ref = ss.ssd_scan_plain(*args, 256, init)
@@ -1589,8 +1648,8 @@ def ssd_phase(checks, torch, dev, seed: int) -> dict:
         finite = bool(torch.isfinite(y.float()).all()
                       and torch.isfinite(fin).all())
         checks.expect(finite and max(errs.values()) <= SSD_BAR,
-                      f"ssd {key}: finite {finite}, norm errs {errs} <= "
-                      f"{SSD_BAR}")
+                      f"ssd {key} {what}: finite {finite}, norm errs {errs} "
+                      f"<= {SSD_BAR}")
         abs_err = (y.float() - y_ref.float()).abs().max().item()
         return y_ref, fin_ref, errs, abs_err
 
@@ -1623,12 +1682,12 @@ def ssd_phase(checks, torch, dev, seed: int) -> dict:
         "initial state ignored: final state": norm_err(fin_zero, fin_init),
     }
     checks.expect(min(faults.values()) > SSD_BAR,
-                  f"ssd: every carry fault's norm err {faults} exceeds the "
-                  f"bar {SSD_BAR}")
+                  f"ssd {key}: every carry fault's norm err {faults} exceeds "
+                  f"the bar {SSD_BAR}")
     k_ms = event_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, b, c), 20)
     p_ms = event_ms(torch, lambda: ss.ssd_scan_plain(x, dt, a, b, c, 256), 20)
     b_ms, b_by = ssd_bound(B, S, H, P, N, q)
-    print(f"phase ssd kernel: B {B} S {S} H {H} P {P} N {N}, dt from "
+    print(f"phase ssd kernel {key}: B {B} S {S} H {H} P {P} N {N}, dt from "
           f"{SSD_DT_RANGE}, -a from {SSD_A_RANGE}: norm err y "
           f"{errs['y']:.3e}, final state {errs['final_state']:.3e} (max abs "
           f"err y {abs_err:.3e}); over {n} tokens from an initial state y "
@@ -1696,23 +1755,25 @@ def moe_routing_replay(routes: list, record: bool):
 
 def paired_kernels(errs: list):
     """``model_kernels`` arguments that run each call through the kernel and
-    through its plain version on the same inputs, append the normalised
-    error of each call to ``errs`` and go on with the kernel's result."""
+    through its plain version on the same inputs, append (kernel name,
+    normalised error) of each call to ``errs`` and go on with the kernel's
+    result."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
     def attn(q, k, v, *, causal, window=None, chunk=fa.DEFAULT_CHUNK,
-             bidirectional_prefix=0):
+             bidirectional_prefix=0, scale=None):
         kw = dict(causal=causal, window=window, chunk=chunk,
-                  bidirectional_prefix=bidirectional_prefix)
+                  bidirectional_prefix=bidirectional_prefix, scale=scale)
         got = fa.flash_attention_kernel(q, k, v, **kw)
-        errs.append(norm_err(got, fa.flash_attention_plain(q, k, v, **kw)))
+        errs.append(("flash_attention",
+                     norm_err(got, fa.flash_attention_plain(q, k, v, **kw))))
         return got
 
     def ssd(x, dt, a, b, c, chunk, init_state=None):
         y, fin = ss.ssd_scan_kernel(x, dt, a, b, c, chunk, init_state)
         y_p, fin_p = ss.ssd_scan_plain(x, dt, a, b, c, chunk, init_state)
-        errs.append(max(norm_err(y, y_p), norm_err(fin, fin_p)))
+        errs.append(("ssd_scan", max(norm_err(y, y_p), norm_err(fin, fin_p))))
         return y, fin
 
     return attn, ssd
@@ -1746,26 +1807,74 @@ def prefill_vs_decode(torch, model, params, toks, vocab: int):
     return first, max(errs) / scale, errs, finite
 
 
+def reference_gaps(torch, model, params, seed: int, toks, vocab: int,
+                   family: str) -> list:
+    """A prefill of ``toks[:, :s0]``, then ``CONSIST_STEPS - 1`` decode
+    steps fed the known tokens, through the model's cache; each step's
+    logits against the plain float32 reference's forward
+    (``bench/reference/<family>.py``, TF32 off) over the same tokens, on
+    the model's float32 weights from ``seed``: max |served - reference|
+    over max |reference|, a step each."""
+    import dataclasses
+
+    from bench.reference import follow
+    from bench.reference.common import FP32, float32_highest
+    from repro_torch.launch.serve import prompt_batch
+
+    s0 = toks.shape[1] - CONSIST_STEPS
+    logits, cache = model.prefill(params, prompt_batch(model.cfg, toks[:, :s0]),
+                                  max_seq=toks.shape[1] + 8)
+    served = [logits[:, :vocab]]
+    for j in range(CONSIST_STEPS - 1):
+        logits, cache = model.decode_step(params, cache, toks[:, s0 + j],
+                                          s0 + j)
+        served.append(logits[:, :vocab])
+    del cache
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    float32_highest()
+    try:
+        fam = follow.family(family)
+        m = dataclasses.asdict(model.cfg)
+        ref_params = model.init(seed)
+        with torch.no_grad():
+            x = fam.hidden(ref_params, toks[:, :s0 + CONSIST_STEPS - 1], m,
+                           FP32)
+            want = x[:, s0 - 1:] @ fam.head(ref_params, m)
+        del ref_params, x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
+    torch.cuda.empty_cache()
+    return [((got - want[:, j]).abs().max() / want[:, j].abs().max()).item()
+            for j, got in enumerate(served)]
+
+
 def kernel_calls(cfg, kernel: str) -> int:
-    """Calls of the family's kernel in one prefill: one per attention of an
-    attention layer (whisper's decoder layers attend twice, to themselves
-    and to the encoder), one per SSD layer."""
-    if kernel == "ssd_scan":
-        return cfg.n_layers
+    """Calls of ``kernel`` in one prefill: one per attention of an attention
+    layer (whisper's decoder layers attend twice, to themselves and to the
+    encoder), one per SSD layer; none of any other kernel."""
+    if kernel not in ("flash_attention", "ssd_scan"):
+        return 0
     if cfg.family == "hybrid":
-        return cfg.block_types().count("attn")
+        kind = "attn" if kernel == "flash_attention" else "mamba"
+        return cfg.block_types().count(kind)
+    if (kernel == "ssd_scan") != (cfg.family == "ssm"):
+        return 0
     if cfg.family == "encdec":
         return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
-def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
+def serve_phase(checks, np, torch, dev, arch: str, layers,
                 seed: int) -> dict:
     """``Server.run`` at full width (cut to ``layers`` layers if given)
     with the launch counts read around it; then, on the same weights, the
     prefill through the kernels against the prefill through the plain
     versions, prefill against decode on both paths, and a profiled window
-    of decode steps.  Returns the family kernel's launches in the run and
+    of decode steps.  Returns the model kernels' launches in the run and
     the kernels-against-plain errors."""
     import dataclasses
 
@@ -1780,7 +1889,8 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
         cut = (f", cut to {layers} of its {cfg.n_layers} layers at full "
                "width")
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    calls = kernel_calls(cfg, kernel)
+    want = {name: kernel_calls(cfg, name) for name in counters}
+    calls = sum(want.values())
     model = Model(cfg, device=dev)
     params = model.init(seed)
     n_params = sum(t.numel() for t in _tensors(params))
@@ -1802,7 +1912,6 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
     stats = srv.run(requests(SERVE_GEN))
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {name: (calls if name == kernel else 0) for name in counters}
     checks.expect(launches == want,
                   f"serve {arch}: launches {launches}, want {want}")
     checks.expect(stats["logits_finite"], f"serve {arch}: logits finite")
@@ -1824,13 +1933,17 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
     with model_kernels(*paired_kernels(layer_errs)):
         model.prefill(srv.params, prompt_batch(cfg, toks[:, :s0]),
                       max_seq=SERVE_PROMPT + 8)
-    bar = ATTN_BAR if kernel == "flash_attention" else SSD_BAR
-    worst = max(range(len(layer_errs)), key=layer_errs.__getitem__)
+    bars = {"flash_attention": ATTN_BAR, "ssd_scan": SSD_BAR}
+    worst = max(range(len(layer_errs)),
+                key=lambda i: layer_errs[i][1] / bars[layer_errs[i][0]])
+    bar = bars[layer_errs[worst][0]]
+    layer_errs = [err for _, err in layer_errs]
     checks.expect(len(layer_errs) == calls
                   and layer_errs[worst] <= bar,
                   f"serve {arch}: {len(layer_errs)} layer calls, kernel "
                   f"against plain at the model's inputs, worst norm err "
-                  f"{layer_errs[worst]} (layer {worst}) <= {bar}")
+                  f"{layer_errs[worst]} (call {worst}) against its kernel's "
+                  f"bar {bars}")
     routes = []
     with moe_routing_replay(routes, record=True):
         (k_logits, k_cache), rel, errs, finite = prefill_vs_decode(
@@ -1859,10 +1972,18 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
                   f"serve {arch}: prefill vs decode err/max {rel} <= "
                   f"{consist_bar}, finite {finite} (plain path {p_finite})")
     del k_cache, p_cache
+    ref_errs = None
+    if arch in REFERENCE_ARCHS:
+        ref_errs = reference_gaps(torch, model, srv.params, seed, toks, V,
+                                  REFERENCE_ARCHS[arch])
+        checks.expect(max(ref_errs) <= REFERENCE_BAR,
+                      f"serve {arch}: served logits against the float32 "
+                      f"reference's forward, err/max per step {ref_errs} "
+                      f"<= {REFERENCE_BAR}")
 
     # Where prefill and decode time go, under torch.profiler (device
     # activity): one prefill of the serving batch, its device time split
-    # between the family's kernel, the matmuls and the rest; then
+    # between each model kernel it launches, the matmuls and the rest; then
     # DECODE_PROFILE steps, busy time against the wall.
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1873,7 +1994,8 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
             max_seq=SERVE_PROMPT + SERVE_GEN + 8)
         torch.cuda.synchronize()
         p_wall = time.perf_counter() - t
-    split, p_top = device_split(device_events(prof), KERNEL_SYMBOLS[kernel])
+    split, p_top = device_split(device_events(prof), {
+        name: KERNEL_SYMBOLS[name] for name, n in want.items() if n})
     p_busy = sum(ms for ms, _ in split.values())
     nxt = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
@@ -1905,6 +2027,8 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
           f"err/max (norm err): "
           + ", ".join(f"{name} {e:.3e} ({vs_plain_norm[name]:.3e})"
                       for name, e in vs_plain.items())
+          + (f"; served against the float32 reference err/max per step "
+             f"{[f'{e:.3e}' for e in ref_errs]}" if ref_errs else "")
           + f"; prefill vs decode err/max {rel:.3e} (bar {consist_bar}; max "
           f"abs err "
           f"{max(errs):.4e}, per step {[f'{e:.3e}' for e in errs]}), plain "
@@ -1923,11 +2047,13 @@ def serve_phase(checks, np, torch, dev, arch: str, kernel: str, layers,
           f"top: {top}", flush=True)
     del srv, model, cache, logits
     torch.cuda.empty_cache()
-    return {"launches": launches[kernel], "layers": cfg.n_layers,
+    return {"launches": {name: n for name, n in launches.items() if n},
+            "layers": cfg.n_layers,
             "layer_norm_err_worst": layer_errs[worst],
             "model_vs_plain_rel_errs": vs_plain,
             "model_vs_plain_norm_errs": vs_plain_norm,
             "prefill_vs_decode": rel, "prefill_vs_decode_plain": p_rel,
+            "reference_errs": ref_errs, "decode_s": stats["decode_s"],
             "prefill_s": stats["prefill_s"],
             "prefill_profile_ms": {name: ms for name, (ms, _) in
                                    split.items()}}
@@ -1990,7 +2116,8 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
     """The backward kernel against its plain version at
     ``ATTN_BWD_SHAPES``, from the forward kernel's own output and lse, with
     plain renderings of the faults the bar is there for; each shape timed
-    beside the plain version, SDPA's backward and the bound."""
+    beside the plain version, SDPA's backward and the bound; at a shape of
+    ``ATTN_SCALES``, with that scale throughout."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
@@ -1998,20 +2125,23 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
     for key, (B, Sq, Sk, H, KV, dh), causal, window, prefix in (
             ATTN_BWD_SHAPES):
         g = H // KV
+        scale = ATTN_SCALES.get(key)
+        q_scale = ATTN_EDGE_Q_SCALE * (1.0 if scale is None
+                                       else dh ** -0.5 / scale)
         q = torch.randn((B, Sq, H, dh), generator=gen, device=dev)
-        q = (q * ATTN_EDGE_Q_SCALE).to(torch.bfloat16)
+        q = (q * q_scale).to(torch.bfloat16)
         k, v = (torch.randn((B, Sk, KV, dh), generator=gen,
                             device=dev).to(torch.bfloat16) for _ in range(2))
         do = torch.randn((B, Sq, H, dh), generator=gen,
                          device=dev).to(torch.bfloat16)
-        kw = dict(causal=causal, window=window)
+        kw = dict(causal=causal, window=window, scale=scale)
         o, lse = fa.flash_attention_cuda(q, k, v, prefix=prefix,
                                          return_lse=True, **kw)
 
         def plain(q_, k_, v_, o_, lse_, do_, window_=window):
             return fa.flash_attention_bwd_plain(
                 q_, k_, v_, o_, lse_, do_, causal=causal, window=window_,
-                bidirectional_prefix=prefix)
+                bidirectional_prefix=prefix, scale=scale)
 
         def kernel():
             return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
@@ -2036,7 +2166,8 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
         # off (the diagonal dropped: q[1:] over k[:-1], window one shorter,
         # against the rows from 1 on) or, without a causal mask, the last
         # key dropped; the GQA group sum over head 0 of each group only;
-        # the scale applied twice to dK.
+        # the scale applied twice to dK; where the shape has its own scale,
+        # dQ and dK taken at the default dh ** -0.5 in its place.
         dq_w, dk_w, _ = want
         fq, fk, _ = plain(q, k, v, torch.zeros_like(o), lse, do)
         faults = {"delta dropped": max(norm_err(fq, dq_w),
@@ -2054,14 +2185,20 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
             faults["group sum over head 0"] = norm_err(
                 plain(q[:, :, ::g], k, v, o[:, :, ::g],
                       lse[:, ::g].contiguous(), do[:, :, ::g])[1], dk_w)
-        faults["scale twice on dK"] = norm_err(dk_w * dh ** -0.5, dk_w)
+        sm = dh ** -0.5 if scale is None else scale
+        faults["scale twice on dK"] = norm_err(dk_w * sm, dk_w)
+        if scale is not None:
+            faults["default scale on dQ, dK"] = max(
+                norm_err(dq_w * dh ** -0.5 / scale, dq_w),
+                norm_err(dk_w * dh ** -0.5 / scale, dk_w))
         checks.expect(min(faults.values()) > ATTN_BWD_BAR,
                       f"attention backward {key}: every fault's norm err "
                       f"{faults} exceeds the bar {ATTN_BWD_BAR}")
         del got, want, fq, fk, dq_w, dk_w
         k_ms = event_ms(torch, kernel, 10)
         p_ms = event_ms(torch, lambda: plain(q, k, v, o, lse, do), 2)
-        lib_ms = sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix)
+        lib_ms = sdpa_bwd_ms(torch, q, k, v, do, causal, window, prefix,
+                             scale)
         b_ms, b_by = attention_bwd_bound(B, H, KV, Sq, dh, causal, window,
                                          Sk, prefix)
         out[key] = {"max_abs_err": abs_err, "norm_errs": errs, "ms": k_ms,
@@ -2070,13 +2207,13 @@ def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
                     "bit_equal_twice": twice,
                     "shape": [B, Sq, Sk, H, KV, dh,
                               "causal" if causal else "non-causal", window,
-                              prefix, f"q x{ATTN_EDGE_Q_SCALE}"],
-                    "kernel_head_dim": fa.kernel_head_dim(dh)}
+                              prefix, f"q x{q_scale}"],
+                    "scale": sm, "kernel_head_dim": fa.kernel_head_dim(dh)}
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"phase attention backward {key}: B {B} Sq {Sq} Sk {Sk} H {H} "
               f"KV {KV} dh {dh} (kernel dh {fa.kernel_head_dim(dh)}) "
               f"{'causal' if causal else 'non-causal'} window {window} "
-              f"prefix {prefix}, q x{ATTN_EDGE_Q_SCALE}: norm err "
+              f"prefix {prefix}, scale {sm}, q x{q_scale}: norm err "
               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
               + f", max abs err {abs_err:.3e}, two calls bit-equal {twice}"
               f"; kernel {k_ms:.4f} ms, plain "
@@ -2730,8 +2867,10 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
 
 def train_families_phase(checks, torch, dev, seed: int) -> dict:
     """One train step of each other family's smoke preset on the card:
-    finite loss and gradient norm with the family's backward kernel
-    launched (the SSD scan's for ssm, the attention's for the others)."""
+    finite loss and gradient norm with the backward kernel of every model
+    kernel the arch's prefill calls (``kernel_calls``) launched: the SSD
+    scan's for ssm, the attention's for the others, both for a hybrid with
+    Mamba-2 layers."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.launch.train import preset_config
     from repro_torch.models.model import Model
@@ -2754,9 +2893,10 @@ def train_families_phase(checks, torch, dev, seed: int) -> dict:
         state, m = step(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         launches = {name: fn.launches for name, fn in counters.items()}
-        bwd = "ssd_scan_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
-        checks.expect(math.isfinite(loss) and math.isfinite(gnorm)
-                      and launches[bwd] > 0,
+        bwd = [f"{name}_bwd" for name in ("flash_attention", "ssd_scan")
+               if kernel_calls(cfg, name)]
+        checks.expect(math.isfinite(loss) and math.isfinite(gnorm) and bwd
+                      and all(launches[name] > 0 for name in bwd),
                       f"train {arch}: loss {loss}, grad norm {gnorm}, "
                       f"launches {launches}")
         out[arch] = {"family": cfg.family, "loss": loss, "grad_norm": gnorm,
@@ -3254,7 +3394,7 @@ def dryrun_phase(checks, np, torch, dev, seed: int) -> dict:
             "cell_s": cell_s}
 
 
-# Kernel names as the profiler shows them, per family kernel.
+# Kernel names as the profiler shows them, per model kernel.
 KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "ssd_scan": "ssd_fwd"}
 # Device kernels of a matrix product (cuBLAS and CUTLASS names).
 MATMUL_SYMBOLS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
@@ -3268,20 +3408,24 @@ def device_events(prof) -> list:
             if not getattr(e, "is_user_annotation", False)]
 
 
-def device_split(events, symbol: str) -> tuple:
+def device_split(events, symbol) -> tuple:
     """Device time (ms) and launches of a profile by group: the kernel whose
-    name holds ``symbol``, the matmuls, everything else; and the five
-    largest entries of everything else."""
-    split = {"kernel": [0.0, 0], "matmuls": [0.0, 0], "rest": [0.0, 0]}
+    name holds ``symbol`` (group "kernel"; or, for a dict {group: symbol},
+    each such kernel in its own group), the matmuls, everything else; and
+    the five largest entries of everything else."""
+    kernels = {"kernel": symbol} if isinstance(symbol, str) else symbol
+    split = {**{name: [0.0, 0] for name in kernels}, "matmuls": [0.0, 0],
+             "rest": [0.0, 0]}
     rest = []
     for e in events:
         ms = e.self_device_time_total / 1e3
         if ms <= 0:
             continue
         name = e.key.lower()
-        group = ("kernel" if symbol in e.key else
-                 "matmuls" if any(m in name for m in MATMUL_SYMBOLS) else
-                 "rest")
+        group = next((g for g, sym in kernels.items() if sym in e.key),
+                     None) or ("matmuls" if any(m in name
+                                                for m in MATMUL_SYMBOLS)
+                               else "rest")
         split[group][0] += ms
         split[group][1] += e.count
         if group == "rest":

@@ -7,9 +7,10 @@ input of a cell (``InputSpec``), which the dry-run turns into fake
 tensors.
 """
 
-from repro_torch.configs.registry import (ARCHS, SHAPES, CELLS,
+from repro_torch.configs.registry import (ALL_ARCHS, ARCHS, CELLS,
+                                          PORT_ONLY_ARCHS, SHAPES,
                                           cell_skip_reason, get_config,
                                           input_specs, list_cells)
 
-__all__ = ["ARCHS", "SHAPES", "CELLS", "cell_skip_reason", "get_config",
-           "input_specs", "list_cells"]
+__all__ = ["ALL_ARCHS", "ARCHS", "PORT_ONLY_ARCHS", "SHAPES", "CELLS",
+           "cell_skip_reason", "get_config", "input_specs", "list_cells"]

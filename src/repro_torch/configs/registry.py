@@ -1,7 +1,8 @@
 """Architecture registry, input shapes, and dry-run cell enumeration.
 
 Port of the JAX package's ``configs/registry.py``; the config files beside
-this one are data, copied from it.  torch has no ``ShapeDtypeStruct``:
+this one are data, copied from it, except those of
+:data:`PORT_ONLY_ARCHS`.  torch has no ``ShapeDtypeStruct``:
 :func:`input_specs` returns :class:`InputSpec` records (a shape and a
 torch dtype), which the dry-run turns into fake tensors.
 """
@@ -28,16 +29,20 @@ ARCHS = (
     "whisper-base",
     "recurrentgemma-2b",
 )
+#: Architectures of the port alone, with no twin in the JAX package (its
+#: tests hold them to the benchmark's plain references instead).
+PORT_ONLY_ARCHS = ("granite-4.0-h-micro",)
+ALL_ARCHS = ARCHS + PORT_ONLY_ARCHS
 
 _MOD = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-        for a in ARCHS}
+        for a in ALL_ARCHS}
 _CACHE: Dict[str, ModelConfig] = {}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _CACHE:
         if arch not in _MOD:
-            raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
+            raise KeyError(f"unknown arch {arch!r}; choose from {ALL_ARCHS}")
         _CACHE[arch] = importlib.import_module(_MOD[arch]).CONFIG
     return _CACHE[arch]
 

@@ -17,7 +17,8 @@ take strides, so the public ``ops.flash_attention`` passes transposed
 views of the JAX layout ``[B, H, S, dh]`` without a copy.
 
 The function, on every path: scores ``q kᵀ`` with float32 accumulation,
-times the real ``dh ** -0.5``; masked entries (above the diagonal, outside
+times ``scale`` (the real ``dh ** -0.5`` unless the model gives its own,
+as granite-4.0-h's 1/64); masked entries (above the diagonal, outside
 the window, keys past ``Sk``) set to ``NEG_INF = -1e30``, except that a key
 below ``bidirectional_prefix`` is visible to every query (the vlm family's
 image tokens attend to each other both ways); a running max and
@@ -39,7 +40,8 @@ The functions:
   wrapper zero-pads any other dh up to 256 to the next of them
   (:func:`kernel_head_dim`, :func:`pad_head_dim`): zero columns of q and k
   add nothing to a score, zero columns of v give zero output columns,
-  which it slices away, and it passes the scale of the real dh.  It counts
+  which it slices away, and it passes the scale of the real dh (or the
+  caller's ``scale``).  It counts
   its launches in ``flash_attention_cuda.launches``;
 * :func:`flash_attention_bwd_cuda` — the backward kernel's wrapper (two
   launches a call, counted once in ``flash_attention_bwd_cuda.launches``),
@@ -459,10 +461,17 @@ def _strides(*tensors) -> ctypes.Array:
 
 LIBRARY = torch.library.Library("repro_torch", "FRAGMENT")
 LIBRARY.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
-               "int? window, int prefix, bool return_lse) -> (Tensor, Tensor)")
+               "int? window, int prefix, bool return_lse, float? scale=None) "
+               "-> (Tensor, Tensor)")
 LIBRARY.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
-               "Tensor lse, Tensor do, bool causal, int? window, int prefix) "
-               "-> (Tensor, Tensor, Tensor)")
+               "Tensor lse, Tensor do, bool causal, int? window, int prefix, "
+               "float? scale=None) -> (Tensor, Tensor, Tensor)")
+
+
+def _scale(dh: int, scale: Optional[float]) -> float:
+    """The scores' scale: ``scale``, or the real dh's ``dh ** -0.5``
+    whatever the padding."""
+    return float(dh ** -0.5 if scale is None else scale)
 
 
 def _fwd_outputs(q: torch.Tensor, dh: int, return_lse: bool):
@@ -477,7 +486,8 @@ def _fwd_outputs(q: torch.Tensor, dh: int, return_lse: bool):
     return out, (out[..., :dh] if dk != dh else out), lse
 
 
-def _flash_attention_launch(q, k, v, causal, window, prefix, return_lse):
+def _flash_attention_launch(q, k, v, causal, window, prefix, return_lse,
+                            scale=None):
     """``repro_torch::flash_attention`` on the card: the launch, on
     operands :func:`flash_attention_cuda` has checked."""
     fn = "flash_attention_cuda"
@@ -485,7 +495,7 @@ def _flash_attention_launch(q, k, v, causal, window, prefix, return_lse):
     Sk, KV = k.shape[1], k.shape[2]
     dk = kernel_head_dim(dh)
     _check_base(fn, q=q, k=k, v=v)
-    scale = float(dh ** -0.5)     # the real dh's, whatever the padding
+    scale = _scale(dh, scale)
     q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     buf, out, lse = _fwd_outputs(q, dh, return_lse)
     if buf.numel() == 0:
@@ -506,7 +516,8 @@ def _flash_attention_launch(q, k, v, causal, window, prefix, return_lse):
     return out, lse
 
 
-def _flash_attention_fake(q, k, v, causal, window, prefix, return_lse):
+def _flash_attention_fake(q, k, v, causal, window, prefix, return_lse,
+                          scale=None):
     _, _, _, dh, _, _, dk = _check_shapes(q, k, v, window, prefix,
                                           "flash_attention_cuda")
     return _fwd_outputs(pad_head_dim(q, dk), dh, return_lse)[1:]
@@ -522,7 +533,8 @@ def _bwd_outputs(q, k, v, dh: int):
     return bufs, bufs
 
 
-def _flash_attention_bwd_launch(q, k, v, o, lse, do, causal, window, prefix):
+def _flash_attention_bwd_launch(q, k, v, o, lse, do, causal, window, prefix,
+                                scale=None):
     """``repro_torch::flash_attention_bwd`` on the card: the two launches,
     on operands :func:`flash_attention_bwd_cuda` has checked."""
     fn = "flash_attention_bwd_cuda"
@@ -530,7 +542,7 @@ def _flash_attention_bwd_launch(q, k, v, o, lse, do, causal, window, prefix):
     Sk, KV = k.shape[1], k.shape[2]
     dk = kernel_head_dim(dh)
     _check_base(fn, q=q, k=k, v=v, o=o, do=do)
-    scale = float(dh ** -0.5)
+    scale = _scale(dh, scale)
     q, k, v, o, do = (pad_head_dim(t, dk) for t in (q, k, v, o, do))
     (dq, dkey, dval), grads = _bwd_outputs(q, k, v, dh)
     if q.numel() == 0 or k.numel() == 0:
@@ -556,7 +568,8 @@ def _flash_attention_bwd_launch(q, k, v, o, lse, do, causal, window, prefix):
     return grads
 
 
-def _flash_attention_bwd_fake(q, k, v, o, lse, do, causal, window, prefix):
+def _flash_attention_bwd_fake(q, k, v, o, lse, do, causal, window, prefix,
+                              scale=None):
     _, _, _, dh, _, _, dk = _check_bwd(q, k, v, o, lse, do, window, prefix,
                                        "flash_attention_bwd_cuda")
     return _bwd_outputs(*(pad_head_dim(t, dk) for t in (q, k, v)), dh)[1]
@@ -592,7 +605,8 @@ def _flash_attention_bwd_flop(q, k, v, o, lse, do, causal, window, prefix,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int] = None,
-                         prefix: int = 0, return_lse: bool = False):
+                         prefix: int = 0, return_lse: bool = False,
+                         scale: Optional[float] = None):
     """Launch ``csrc/flash_attention.cu`` (the op ``repro_torch::
     flash_attention``) on bfloat16 CUDA tensors q ``[B, Sq, H, dh]``, k/v
     ``[B, Sk, KV, dh]`` (any strides with a unit head-dim stride), keys
@@ -603,10 +617,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_bwd_cuda` takes.  Builds the kernel with
     ``nvcc`` at first use.  Raises on any other input, a dh above 256
     included, and if the launch is refused.  A fake or meta tensor runs
-    the op's fake implementation: shapes only, nothing launched."""
+    the op's fake implementation: shapes only, nothing launched.  ``scale``
+    multiplies the scores (None: ``dh ** -0.5``)."""
     _check_shapes(q, k, v, window, prefix, "flash_attention_cuda")
     out, lse = torch.ops.repro_torch.flash_attention.default(
-        q, k, v, bool(causal), window, int(prefix), bool(return_lse))
+        q, k, v, bool(causal), window, int(prefix), bool(return_lse), scale)
     return (out, lse) if return_lse else out
 
 
@@ -617,19 +632,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
                              causal: bool, window: Optional[int] = None,
-                             prefix: int = 0):
+                             prefix: int = 0, scale: Optional[float] = None):
     """Launch ``csrc/flash_attention_bwd.cu`` (the op ``repro_torch::
     flash_attention_bwd``: its two kernels, dQ with the row terms delta and
     lse, then dK/dV) on bfloat16 CUDA tensors: q, k, v as
     :func:`flash_attention_cuda` takes them, o and do shaped as q, lse the
     forward's [B, H, Sq] float32.  Returns (dq, dk, dv) shaped as q, k, v,
     still being computed on the current stream.  Zero-pads a dh that is not
-    compiled, as the forward does.  Counts one launch per call in
-    ``flash_attention_bwd_cuda.launches``.  Raises on any other input and
-    if a launch is refused."""
+    compiled, as the forward does.  ``scale`` is the forward's.  Counts one
+    launch per call in ``flash_attention_bwd_cuda.launches``.  Raises on
+    any other input and if a launch is refused."""
     _check_bwd(q, k, v, o, lse, do, window, prefix, "flash_attention_bwd_cuda")
     return torch.ops.repro_torch.flash_attention_bwd.default(
-        q, k, v, o, lse, do, bool(causal), window, int(prefix))
+        q, k, v, o, lse, do, bool(causal), window, int(prefix), scale)
 
 
 flash_attention_bwd_cuda.launches = 0
@@ -655,28 +670,31 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int],
-                prefix: int):
+                prefix: int, scale: Optional[float] = None):
         o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      prefix=prefix, return_lse=True)
+                                      prefix=prefix, return_lse=True,
+                                      scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (causal, window, prefix)
+        ctx.mask = (causal, window, prefix, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, prefix = ctx.mask
+        causal, window, prefix, scale = ctx.mask
         dq, dk, dv = flash_attention_bwd_cuda(
             q, k, v, o, lse, _aligned(do), causal=causal, window=window,
-            prefix=prefix)
-        return dq, dk, dv, None, None, None
+            prefix=prefix, scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: Optional[int] = None,
                            chunk: int = DEFAULT_CHUNK,
-                           bidirectional_prefix: int = 0) -> torch.Tensor:
-    """Attention in the model layout on q's device: a CPU tensor is
+                           bidirectional_prefix: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Attention in the model layout on q's device (scores times ``scale``,
+    None: ``dh ** -0.5``): a CPU tensor is
     computed by :func:`flash_attention_plain` (with ``chunk``; autograd
     differentiates it), a CUDA tensor by the CUDA kernel (its own tiles;
     ``chunk`` does not change the function): through :class:`FlashAttention`
@@ -688,12 +706,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk,
-                                     bidirectional_prefix=bidirectional_prefix)
+                                     bidirectional_prefix=bidirectional_prefix,
+                                     scale=scale)
     if q.device.type in OP_DEVICES:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window,
-                                        bidirectional_prefix)
+                                        bidirectional_prefix, scale)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    prefix=bidirectional_prefix)
+                                    prefix=bidirectional_prefix, scale=scale)
     raise ValueError(f"no flash_attention for device {q.device}")

@@ -111,13 +111,25 @@ def dp_size(mesh) -> int:
     return n
 
 
+def _n_mamba(cfg) -> int:
+    """A hybrid's Mamba-2 layers (granite-4.0-h); 0 for the others."""
+    return cfg.block_types().count("mamba") if cfg.family == "hybrid" else 0
+
+
+def _d_eff(cfg) -> int:
+    """The widest activation a layer carries: d_model, the SSM layers'
+    d_inner, the RG-LRU's width."""
+    return max(cfg.d_model,
+               cfg.d_inner if cfg.family == "ssm" or _n_mamba(cfg) else 0,
+               cfg.rnn_width_ if cfg.family == "hybrid" else 0)
+
+
 def choose_microbatches(cfg, spec, mesh) -> int:
     if spec.mode != "train":
         return 1
     dp = dp_size(mesh)
     B, S = spec.global_batch, spec.seq_len
-    d_eff = max(cfg.d_model, cfg.d_inner if cfg.family == "ssm" else 0,
-                cfg.rnn_width_ if cfg.family == "hybrid" else 0)
+    d_eff = _d_eff(cfg)
     # Per-layer live bytes per sequence row under per-layer remat: the saved
     # residual plus scan carries; alpha=2 safety.
     per_row_layer = S * d_eff * 2 * 2
@@ -559,28 +571,31 @@ def hbm_napkin(cfg, spec, mesh, mb: int) -> Dict[str, float]:
     out = {"params": p_bytes, "opt": opt_bytes}
     if spec.mode == "train":
         rows = max(1, (spec.global_batch // mb) // dp)
-        d_eff = max(cfg.d_model, cfg.d_inner if cfg.family == "ssm" else 0,
-                    cfg.rnn_width_ if cfg.family == "hybrid" else 0)
+        d_eff = _d_eff(cfg)
         stash = cfg.n_layers * rows * spec.seq_len * cfg.d_model * 2
         out.update(grads=grad_bytes, remat_stash=stash,
                    layer_transient=rows * spec.seq_len * d_eff * 2 * 8)
     elif spec.mode == "decode":
         rows = max(1, spec.global_batch // dp)
         model_shards = sizes.get("model", 1)
+        ssm_state = rows * (
+            cfg.n_ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+            + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
         if cfg.family == "ssm":
-            cache = cfg.n_layers * rows * (
-                cfg.n_ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
-                + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+            cache = cfg.n_layers * ssm_state
         else:
             w = min(spec.seq_len, cfg.sliding_window or spec.seq_len)
-            cache = (cfg.n_layers * rows * (w / model_shards)
-                     * cfg.n_kv_heads * cfg.head_dim_ * 2 * 2)
+            cache = ((cfg.n_layers - _n_mamba(cfg)) * rows
+                     * (w / model_shards) * cfg.n_kv_heads * cfg.head_dim_
+                     * 2 * 2)
+            if _n_mamba(cfg):
+                cache += _n_mamba(cfg) * ssm_state
         out["kv_cache"] = cache
     else:  # prefill
         rows = max(1, spec.global_batch // dp)
         out["activations"] = rows * spec.seq_len * cfg.d_model * 2 * 8
         model_shards = sizes.get("model", 1)
-        out["kv_cache_out"] = (cfg.n_layers * rows
+        out["kv_cache_out"] = ((cfg.n_layers - _n_mamba(cfg)) * rows
                                * (spec.seq_len / model_shards)
                                * cfg.n_kv_heads * cfg.head_dim_ * 2 * 2)
     out["total"] = float(sum(out.values()))

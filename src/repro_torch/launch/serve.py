@@ -25,7 +25,9 @@ Under a ``torch.profiler``, :meth:`Server.run` records its spans
 request's host time, on ``time.perf_counter_ns``, at which its first token
 reached ``Request.out``} around ``serve.submit`` (left-pad and copy to the
 device), ``serve.prefill`` {``positions``: B x the padded length,
-``prompt_tokens``} and one ``serve.decode_step`` {``t``, ``active``: the
+``prompt_tokens``; ``kv_bytes`` and ``state_bytes``, the decode cache's
+bytes of keys and values and of recurrent state (``Model.cache_bytes``)}
+and one ``serve.decode_step`` {``t``, ``active``: the
 requests still decoding} a new token, which holds ``serve.host_sync`` (the
 tokens' copy to the host, where the host waits for the card).
 """
@@ -135,6 +137,9 @@ class Server:
             nxt = model.greedy(logits)
             _sync(self.device)
             prefill_s = time.perf_counter() - t0
+            if traced_prefill is not None:
+                kv, state = model.cache_bytes(cache)
+                traced_prefill.attrs.update(kv_bytes=kv, state_bytes=state)
         finite = torch.isfinite(logits).all()   # stays on the device
 
         max_new = max(r.max_new for r in requests)
@@ -171,7 +176,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve a batch of random prompts with random weights.")
     ap.add_argument("--arch", default="mamba2-370m",
-                    choices=list(registry.ARCHS))
+                    choices=list(registry.ALL_ARCHS))
     ap.add_argument("--preset", default="smoke",
                     choices=["smoke", "100m", "full"])
     ap.add_argument("--requests", type=int, default=4)

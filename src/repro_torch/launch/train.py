@@ -68,7 +68,7 @@ WARMUP = 20
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-370m",
-                    choices=list(registry.ARCHS))
+                    choices=list(registry.ALL_ARCHS))
     ap.add_argument("--preset", default="smoke",
                     choices=["smoke", "100m", "full"])
     ap.add_argument("--steps", type=int, default=50)

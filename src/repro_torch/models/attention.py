@@ -194,14 +194,15 @@ def _attend(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 kv_x, share), cfg, heads)
         else:
             k, v = _project_kv_whole(params, x, cfg, share)
-    if rope and positions is not None:
+    if rope and positions is not None and cfg.position_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if keep_kv:
         kept = (k, v)
         k, v = k[:, :, klo:khi], v[:, :, klo:khi]
     out = blockwise_attention(q, k, v, causal=causal, window=window,
-                              bidirectional_prefix=bidirectional_prefix)
+                              bidirectional_prefix=bidirectional_prefix,
+                              scale=cfg.attention_multiplier)
     out = partition.constrain(out.reshape(B, S, -1), ("batch", "seq", "heads"))
     return _out_rows(params, out, share), kept
 
@@ -209,10 +210,12 @@ def _attend(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: Optional[int] = None,
                         chunk: int = DEFAULT_CHUNK,
-                        bidirectional_prefix: int = 0) -> torch.Tensor:
+                        bidirectional_prefix: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Block attention with static block skipping.  q: [B, Sq, H, dh];
     k/v: [B, Sk, KV, dh] (H = KV * group); positions below
-    ``bidirectional_prefix`` attend both ways.  Returns [B, Sq, H, dh].
+    ``bidirectional_prefix`` attend both ways; the scores times ``scale``
+    (None: ``dh ** -0.5``).  Returns [B, Sq, H, dh].
 
     On a CUDA tensor this is the hand-written ``flash_attention`` kernel
     (``kernels/csrc/flash_attention.cu``, the kernel the JAX package wrote
@@ -220,7 +223,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's jnp algorithm with ``chunk``-sized blocks."""
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
                                   chunk=chunk,
-                                  bidirectional_prefix=bidirectional_prefix)
+                                  bidirectional_prefix=bidirectional_prefix,
+                                  scale=scale)
 
 
 @spans.spanned("model.attention")
@@ -231,7 +235,9 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full attention block (projections + blockwise core + output
     projection).  ``kv_x`` switches to cross-attention: keys and values
-    from the encoder states, no rope, not causal."""
+    from the encoder states, no rope, not causal.  The config's
+    ``position_embedding`` "nope" leaves out rope too, and its
+    ``attention_multiplier`` scales the scores."""
     return _attend(params, x, cfg, positions=positions,
                    causal=causal and kv_x is None, window=window,
                    rope=rope and kv_x is None,
@@ -323,10 +329,11 @@ def cache_insert(cache: torch.Tensor, new: torch.Tensor, pos: int,
     return cache
 
 
-def _local_decode(q, k, v, cache_len, base, window):
+def _local_decode(q, k, v, cache_len, base, window, scale=None):
     """Decode-attention partial over one slice of the cache, the positions
     ``base + arange(S_local)``: (o, l, m), unnormalized.  q: [B, H, dh];
-    k/v: [B, S_local, KV, dh]."""
+    k/v: [B, S_local, KV, dh]; the scores times ``scale`` (None: ``dh **
+    -0.5``)."""
     B, H, dh = q.shape
     KV = k.shape[2]
     g = H // KV
@@ -336,7 +343,8 @@ def _local_decode(q, k, v, cache_len, base, window):
     if window is not None:
         valid = valid & (pos >= cache_len - window)
     s = torch.einsum("bkgd,bckd->bkgc", qg.to(COMPUTE_DTYPE).float(),
-                     k.to(COMPUTE_DTYPE).float()) * (dh ** -0.5)
+                     k.to(COMPUTE_DTYPE).float()) * (
+                         dh ** -0.5 if scale is None else scale)
     s = torch.where(valid, s, NEG_INF)
     m = torch.amax(s, dim=-1)                            # [B, KV, g]
     p = torch.exp(s - m[..., None])
@@ -349,7 +357,8 @@ def _local_decode(q, k, v, cache_len, base, window):
 
 def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, cache_len: int,
-                             window: Optional[int] = None) -> torch.Tensor:
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """Flash-decode over a sequence-sharded cache.  q: [B, H, dh]; k/v_cache:
     [B, S_local, KV, dh], this rank's slice of the positions (all of them
     without a sharded ``cache_seq``).  Each rank's partial is rescaled to
@@ -358,7 +367,7 @@ def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, dh = q.shape
     s_local = k_cache.shape[1]
     o, l, m = _local_decode(q, k_cache, v_cache, cache_len, i * s_local,
-                            window)
+                            window, scale)
     if axis is not None:
         group = rules.mesh.get_group(axis)
         m_glob = m.clone()
@@ -386,14 +395,19 @@ def decode_attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     # This rank's query heads, gathered for the sequence-sharded decode
     # (which reads every head over its slice of positions); a new token's
     # every kv head, for whichever rank owns its slot.
+    rope = cfg.position_embedding == "rope"
     q = _project_q(params, x[:, None], cfg, share)
-    q = partition.gather_model(apply_rope(q, posb, cfg.rope_theta), 2, share)
+    if rope:
+        q = apply_rope(q, posb, cfg.rope_theta)
+    q = partition.gather_model(q, 2, share)
     k, v = _project_kv_whole(params, x[:, None], cfg, share)
-    k = apply_rope(k, posb, cfg.rope_theta)
+    if rope:
+        k = apply_rope(k, posb, cfg.rope_theta)
     cache_insert(k_cache, k[:, 0], pos, ring=window)
     cache_insert(v_cache, v[:, 0], pos, ring=window)
     eff_len = min(pos + 1, window)
-    out = decode_attention_sharded(q[:, 0], k_cache, v_cache, eff_len)
+    out = decode_attention_sharded(q[:, 0], k_cache, v_cache, eff_len,
+                                   scale=cfg.attention_multiplier)
     out = out[:, share.lo:share.hi].reshape(B, -1)
     return _out_rows(params, out, share), k_cache, v_cache
 

@@ -4,13 +4,25 @@ One dataclass describes dense / MoE / SSM / hybrid / enc-dec / VLM stacks;
 family-specific fields are simply unused elsewhere.  Exact assigned configs
 live in ``repro_torch/configs/<arch>.py``; reduced same-family configs for
 smoke tests come from :meth:`ModelConfig.reduced`.  A copy of the JAX
-package's ``models/config.py`` (it imports nothing of JAX).
+package's ``models/config.py`` (it imports nothing of JAX), with fields of
+the port's own (:data:`PORT_FIELDS`: the multipliers, the logits' divisor
+and the position embedding of granite-4.0-h), each at a default that
+leaves every configuration of the JAX package as it computes there, and
+values of its own: ``"mamba"`` blocks in a hybrid's ``block_pattern`` and
+``local_window=None`` (full attention).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+#: The fields that the JAX package's ``ModelConfig`` lacks, with their
+#: neutral values.
+PORT_FIELDS = {"embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+               "attention_multiplier": None, "logits_scaling": 1.0,
+               "position_embedding": "rope"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +57,12 @@ class ModelConfig:
     ssm_chunk: int = 256
     conv_width: int = 4
 
-    # hybrid (recurrentgemma): block pattern, local-attention window
+    # hybrid: block pattern of "rec" (RG-LRU, recurrentgemma), "mamba"
+    # (Mamba-2 SSD, granite-4.0-h) and "attn" layers, each followed by an
+    # MLP; the attention layers' window (None: full causal attention)
     rnn_width: Optional[int] = None
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
-    local_window: int = 2048
+    local_window: Optional[int] = 2048
 
     # enc-dec (whisper): encoder stack + stubbed frontend length
     n_enc_layers: int = 0
@@ -59,6 +73,20 @@ class ModelConfig:
 
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+
+    # The port's own (granite-4.0-h): the embedding's multiplier, each
+    # mixer's and MLP's output's multiplier into the residual, the
+    # attention's softmax scale (None: head_dim ** -0.5), the divisor of
+    # the logits, and "rope" or "nope" (no position embedding)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    logits_scaling: float = 1.0
+    position_embedding: str = "rope"
+
+    def __post_init__(self):
+        # A pattern read from JSON arrives as a list.
+        object.__setattr__(self, "block_pattern", tuple(self.block_pattern))
 
     # ---- derived ----------------------------------------------------------
     @property
@@ -107,16 +135,18 @@ class ModelConfig:
         kinds = self.block_types()
         for kind in kinds if self.family == "hybrid" else ["x"] * self.n_layers:
             attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            di, n, h = self.d_inner, self.ssm_state, self.n_ssm_heads
+            ssm = (d * (2 * di + 2 * n + h) + di * d
+                   + self.conv_width * (di + 2 * n))
             if self.family == "hybrid":
                 r = self.rnn_width_
-                blk = (2 * d * r + r * d + 3 * r * r + r) if kind == "rec" else attn
+                blk = {"rec": 2 * d * r + r * d + 3 * r * r + r,
+                       "mamba": ssm}.get(kind, attn)
                 mlp = 3 * d * ff if self.mlp_type in ("swiglu", "gelu") else 2 * d * ff
                 per_layer += blk + mlp
                 continue
             if self.family == "ssm":
-                di, n, h = self.d_inner, self.ssm_state, self.n_ssm_heads
-                per_layer += (d * (2 * di + 2 * n + h) + di * d
-                              + self.conv_width * (di + 2 * n))
+                per_layer += ssm
                 continue
             mlp_mult = 3 if self.mlp_type == "swiglu" else 2
             if self.n_experts:
@@ -156,7 +186,7 @@ class ModelConfig:
             ssm_head_dim=16,
             ssm_chunk=16,
             rnn_width=64 if self.rnn_width else None,
-            local_window=32,
+            local_window=32 if self.local_window else None,
             sliding_window=32 if self.sliding_window else None,
             n_enc_layers=2 if self.n_enc_layers else 0,
             n_frames=24 if self.n_enc_layers else 1500,

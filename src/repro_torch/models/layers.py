@@ -241,8 +241,10 @@ def mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
 
 @spans.spanned("model.embed")
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` in bfloat16 (== cast, then gather).  Through
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 multiplier: float = 1.0) -> torch.Tensor:
+    """Rows of ``table`` in bfloat16 (== cast, then gather; times
+    ``multiplier`` in float32 before the cast where it is not 1).  Through
     ``F.embedding``, whose gradient sums the rows of repeated tokens in a
     fixed order on the card, where an indexing gradient adds them with
     atomics: a replayed training step gives the same bits.  A sharded
@@ -256,6 +258,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     out = F.embedding(torch.where(own, tokens - share.lo, 0), table)
     out = partition.reduce_from_model(out.masked_fill(~own[..., None], 0),
                                       share)
+    if multiplier != 1.0:
+        out = out.float() * multiplier
     return partition.constrain(out.to(COMPUTE_DTYPE),
                                ("batch", "seq", "act_embed"))
 

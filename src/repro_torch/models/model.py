@@ -23,8 +23,10 @@ prefix bidirectional), every SSD prefill through ``ssd_scan``.  Training
 ``torch.autograd.Function``, whose backward is a kernel too, and every SSD
 layer through ``ssd_scan``'s (``SSDScan``), so every family trains on the
 card.  Remat is one
-``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per layer,
-per hybrid unit and per encoder layer, where the reference has its
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per layer
+(the hybrid's too, where the reference checkpoints a pattern unit: ten of
+granite-4.0-h's layers recomputed at once at 16k tokens hold ~25 GB beside
+its 51 GB of state) and per encoder layer, where the reference has its
 per-layer ``jax.checkpoint``; its recompute runs under the forward's
 ``partition`` rules (``partition.recompute_context``).  The reference's
 ``stack_layers`` and ``_barrier`` (an ``optimization_barrier`` that fences
@@ -46,9 +48,20 @@ weight is gathered at its use by ``partition.wcast`` and every rank
 repeats the block.  ``param_axes`` gives the logical axes of every
 parameter in the port's per-layer layout.
 
+The hybrid family's pattern mixes RG-LRU (``"rec"``), Mamba-2 (``"mamba"``,
+the ssm family's block) and attention (``"attn"``, windowed by
+``local_window`` or, where it is None, full) layers, each followed by an
+MLP, and keeps both kinds of decode state side by side in its cache.  The
+port's own config fields (granite-4.0-h) apply in every family where they
+are set: the embedding's multiplier, the residual multiplier of each mixer
+and MLP output (hybrid), the attention's scale and position embedding
+(``models/attention.py``) and the logits' divisor (the loss and
+:meth:`Model._logits`).
+
 Under a ``torch.profiler`` the blocks record spans (``repro_torch.spans``),
 by the same names in training, prefill and decode: ``model.embed``,
-``model.layer`` {``layer``; ``encoder`` for whisper's encoder layers}
+``model.layer`` {``layer``; ``encoder`` for whisper's encoder layers;
+``kind`` for a hybrid's}
 around ``model.norm``, ``model.attention``, ``model.mlp`` or ``model.moe``
 and ``model.ssm`` (``models/ssm.py``), and ``model.loss`` (the chunked
 cross-entropy with its head product).  A remat layer's recompute records
@@ -82,12 +95,15 @@ ACT = ("batch", "seq", "act_embed")
 
 def _ce_chunk(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor, valid_vocab: Optional[int],
-              share: partition.Share):
+              share: partition.Share, logits_scaling: float = 1.0):
     """(sum of the masked NLL, sum of the mask) of one sequence chunk;
     ``head`` holds the vocab columns ``share`` (where they are split over
     the model axis, the max, the sum of exponentials and the gold logit,
-    which only its owner holds, are reduced over the ranks)."""
+    which only its owner holds, are reduced over the ranks); the logits
+    divided by ``logits_scaling`` where it is not 1."""
     logits = partition.constrain((x @ head).float(), ("batch", None, "vocab"))
+    if logits_scaling != 1.0:
+        logits = logits / logits_scaling
     lo, n = share.lo, logits.shape[-1]
     if valid_vocab is not None and valid_vocab < share.hi:
         vocab = torch.arange(lo, lo + n, device=logits.device)
@@ -110,7 +126,8 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           chunk: int = CE_CHUNK,
-                          valid_vocab: Optional[int] = None) -> torch.Tensor:
+                          valid_vocab: Optional[int] = None,
+                          logits_scaling: float = 1.0) -> torch.Tensor:
     """Mean next-token CE; the logits are computed per sequence chunk under
     ``torch.utils.checkpoint``, so only one chunk's [B, c, V] float32
     logits is ever live (the backward recomputes them chunk by chunk).
@@ -119,7 +136,8 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     dividing S, and the sums run chunk after chunk, as the reference's
     scan does.  Where the rules split ``vocab`` evenly over the model axis,
     vocab-parallel: each rank computes the logits of its columns, and
-    ``valid_vocab`` masks by global vocab index."""
+    ``valid_vocab`` masks by global vocab index.  The logits are divided by
+    ``logits_scaling`` (granite-4.0-h's 8) before the softmax."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -138,7 +156,7 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
         nll, m = checkpoint(_ce_chunk, x[:, start:start + c], head,
                             labels[:, start:start + c],
                             mask[:, start:start + c], valid_vocab, share,
-                            use_reentrant=False,
+                            logits_scaling, use_reentrant=False,
                             context_fn=partition.recompute_context)
         tot = tot + nll
         cnt = cnt + m
@@ -158,6 +176,15 @@ def _norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
     if kind == "rms":
         return rms_norm(x, scale, eps)
     return layer_norm(x, scale, partition.gather(p["bias"]), eps)
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """``x + y``, ``y`` times the config's residual multiplier where it is
+    not 1."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
 
 
 def _layer(fn, i: int, *args, **attrs):
@@ -198,8 +225,10 @@ class Model:
 
     def _hybrid_layer_params(self, b: ParamBuilder, kind: str) -> Params:
         cfg = self.cfg
-        block = (rglru_lib.init_rglru_block(b, cfg) if kind == "rec"
-                 else attn_lib.init_attention(b, cfg))
+        init = {"rec": rglru_lib.init_rglru_block,
+                "mamba": ssm_lib.init_mamba2}.get(kind,
+                                                  attn_lib.init_attention)
+        block = init(b, cfg)
         return {"ln1": _init_norm(b, cfg.d_model, "rms"), "block": block,
                 "ln2": _init_norm(b, cfg.d_model, "rms"),
                 "mlp": init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)}
@@ -299,6 +328,8 @@ class Model:
         logits = partition.copy_to_model(x, share) @ partition.wshard(
             head, COMPUTE_DTYPE, ("embed", "vocab"), share)
         logits = partition.constrain(logits.float(), ("batch", "vocab"))
+        if self.cfg.logits_scaling != 1.0:
+            logits = logits / self.cfg.logits_scaling
         return self._mask_pad_logits(logits, share.lo)
 
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:
@@ -341,22 +372,23 @@ class Model:
         cfg = self.cfg
         h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
         if kind == "rec":
-            x = x + rglru_lib.recurrent_block(p["block"], h, cfg)
+            out = rglru_lib.recurrent_block(p["block"], h, cfg)
+        elif kind == "mamba":
+            out = ssm_lib.mamba2_block(p["block"], h, cfg)
         else:
-            x = x + attn_lib.attention(p["block"], h, cfg, positions=positions,
-                                       causal=True, window=cfg.local_window)
+            out = attn_lib.attention(p["block"], h, cfg, positions=positions,
+                                     causal=True, window=cfg.local_window)
+        x = _residual(x, out, cfg)
         h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        x = _residual(x, mlp(p["mlp"], h, cfg.mlp_type), cfg)
         return partition.constrain(x, ACT)
 
-    def _hybrid_unit(self, unit, x: torch.Tensor, positions,
-                     first: int) -> torch.Tensor:
-        """A pattern unit whose first layer is the model's layer
-        ``first``."""
-        for j, (p, kind) in enumerate(zip(unit, self.cfg.block_pattern)):
-            x = _layer(self._hybrid_train_layer, first + j, p, x, positions,
-                       kind)
-        return x
+    def _hybrid_layers(self, params: Params):
+        """(layer params, kind) of every hybrid layer in order: the pattern
+        units' layers, then the remainder's."""
+        flat = [p for unit in params["layers"] for p in unit]
+        flat += params.get("rem_layers", ())
+        return list(zip(flat, self.cfg.block_types()))
 
     def _decoder_layer(self, p: Params, x: torch.Tensor, positions,
                        enc: torch.Tensor) -> torch.Tensor:
@@ -376,25 +408,26 @@ class Model:
         final norm, the MoE aux loss summed over layers, 0 for the other
         families).  ``batch`` holds ``tokens`` [B, S] (tensors or arrays),
         plus ``patch_embeds`` (vlm) or ``frames`` (encdec).  With ``remat``
-        each layer (hybrid: each pattern unit; encdec: each encoder and
-        decoder layer) is recomputed in the backward instead of keeping
-        its activations, as the reference's ``jax.checkpoint`` does."""
+        each layer (encdec: each encoder and decoder layer) is recomputed
+        in the backward instead of keeping its activations, as the
+        reference's ``jax.checkpoint`` does."""
         cfg = self.cfg
         fam = cfg.family
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
-        x = embed_lookup(params["embed"], tokens)
+        x = embed_lookup(params["embed"], tokens, cfg.embedding_multiplier)
         if fam == "vlm":
             pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
             x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
         positions = torch.arange(S, device=self.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
 
-        def run(fn, *args):
+        def run(fn, *args, **kw):
             if remat:
                 return checkpoint(fn, *args, use_reentrant=False,
-                                  context_fn=partition.recompute_context)
-            return fn(*args)
+                                  context_fn=partition.recompute_context,
+                                  **kw)
+            return fn(*args, **kw)
 
         if fam in ("dense", "vlm", "moe"):
             prefix = cfg.n_patches if fam == "vlm" else 0
@@ -412,14 +445,9 @@ class Model:
             for i, p in enumerate(params["layers"]):
                 x = run(_layer, self._ssm_layer, i, p, x)
         elif fam == "hybrid":
-            pattern = cfg.block_pattern
-            for u, unit in enumerate(params["layers"]):
-                x = run(self._hybrid_unit, unit, x, positions,
-                        u * len(pattern))
-            first = len(params["layers"]) * len(pattern)
-            for i, p in enumerate(params.get("rem_layers", ())):
-                x = _layer(self._hybrid_train_layer, first + i, p, x,
-                           positions, pattern[i])
+            for i, (p, kind) in enumerate(self._hybrid_layers(params)):
+                x = run(_layer, self._hybrid_train_layer, i, p, x, positions,
+                        kind, kind=kind)
         else:  # encdec
             enc = self._encode(params, torch.as_tensor(batch["frames"],
                                                        device=self.device),
@@ -445,7 +473,8 @@ class Model:
                      >= cfg.n_patches)[None, :]
             mask = pmask if mask is None else mask * pmask
         ce = chunked_cross_entropy(x, self.head_matrix(params), labels, mask,
-                                   valid_vocab=cfg.vocab_size)
+                                   valid_vocab=cfg.vocab_size,
+                                   logits_scaling=cfg.logits_scaling)
         return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
 
     # ----- decode cache -----------------------------------------------------
@@ -453,6 +482,26 @@ class Model:
         if self.cfg.sliding_window:
             return min(max_seq, self.cfg.sliding_window)
         return max_seq
+
+    def attn_window(self, max_seq: int) -> int:
+        """The positions a hybrid attention layer's cache holds: its
+        ``local_window``'s, or every position where it has none."""
+        if self.cfg.local_window:
+            return min(max_seq, self.cfg.local_window)
+        return max_seq
+
+    @staticmethod
+    def cache_bytes(cache) -> Tuple[int, int]:
+        """(bytes of the cache's keys and values, bytes of its recurrent
+        state: conv histories, SSM and RG-LRU states) on this rank."""
+        kv = state = 0
+        for path, t in torch.utils._pytree.tree_flatten_with_path(cache)[0]:
+            n = t.numel() * t.element_size()
+            if getattr(path[-1], "key", None) in ("k", "v", "xk", "xv"):
+                kv += n
+            else:
+                state += n
+        return kv, state
 
     def init_cache(self, batch: int, max_seq: int):
         """Zeroed decode cache in the reference's layout."""
@@ -475,15 +524,17 @@ class Model:
         if fam == "hybrid":
             pattern = cfg.block_pattern
             n_units, rem = divmod(cfg.n_layers, len(pattern))
-            W = min(max_seq, cfg.local_window)
-            conv, h = rglru_lib.init_rglru_state(cfg, batch, dev)
 
             def state(kind, n):
-                if kind == "rec":
-                    return {"conv": conv.expand((n,) + conv.shape).clone(),
-                            "h": h.expand((n,) + h.shape).clone()}
-                k, v = kv(n, W)
-                return {"k": k, "v": v}
+                if kind == "attn":
+                    k, v = kv(n, self.attn_window(max_seq))
+                    return {"k": k, "v": v}
+                names, init = {
+                    "rec": (("conv", "h"), rglru_lib.init_rglru_state),
+                    "mamba": (("conv", "ssm"), ssm_lib.init_mamba2_state),
+                }[kind]
+                return {name: t.expand((n,) + t.shape).clone()
+                        for name, t in zip(names, init(cfg, batch, dev))}
 
             return {"units": tuple(state(kind, n_units) for kind in pattern),
                     "rem": tuple({name: t[0] for name, t in
@@ -511,15 +562,19 @@ class Model:
             out, (conv, hst) = rglru_lib.recurrent_block(
                 p["block"], h, cfg, return_state=True)
             st = {"conv": conv, "h": hst}
+        elif kind == "mamba":
+            out, (conv, ssm) = ssm_lib.mamba2_block(p["block"], h, cfg,
+                                                    return_state=True)
+            st = {"conv": conv, "ssm": ssm}
         else:
             out, (k, v) = attn_lib.attention_with_kv(
                 p["block"], h, cfg, positions=positions,
                 window=cfg.local_window)
-            k, v = attn_lib.pack_cache(k, v, min(max_seq, cfg.local_window))
+            k, v = attn_lib.pack_cache(k, v, self.attn_window(max_seq))
             st = {"k": k, "v": v}
-        x = x + out
+        x = _residual(x, out, cfg)
         h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg.mlp_type)
+        x = _residual(x, mlp(p["mlp"], h, cfg.mlp_type), cfg)
         return partition.constrain(x, ACT), st
 
     def _hybrid_decode(self, p: Params, x, kind: str, st: dict, pos: int):
@@ -531,13 +586,18 @@ class Model:
                 p["block"], h, cfg, (st["conv"], st["h"]))
             st["conv"].copy_(conv)
             st["h"].copy_(hst)
+        elif kind == "mamba":
+            out, (conv, ssm) = ssm_lib.mamba2_decode(
+                p["block"], h, cfg, (st["conv"], st["ssm"]))
+            st["conv"].copy_(conv)
+            st["ssm"].copy_(ssm)
         else:
             out, _, _ = attn_lib.decode_attn(
                 p["block"], h, cfg, st["k"], st["v"], pos,
                 attn_lib.global_window(st["k"].shape[1]))
-        x = x + out
+        x = _residual(x, out, cfg)
         h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
-        return x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
+        return _residual(x, mlp(p["mlp"], h, cfg.mlp_type)[:, 0], cfg)
 
     def _encode(self, params: Params, frames: torch.Tensor, *,
                 remat: bool = False) -> torch.Tensor:
@@ -576,7 +636,7 @@ class Model:
         fam = cfg.family
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
-        x = embed_lookup(params["embed"], tokens)
+        x = embed_lookup(params["embed"], tokens, cfg.embedding_multiplier)
         if fam == "vlm":
             pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
             x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
@@ -616,13 +676,15 @@ class Model:
             for u, unit in enumerate(params["layers"]):
                 for i, kind in enumerate(pattern):
                     x, st = _layer(self._hybrid_layer, u * len(pattern) + i,
-                                   unit[i], x, positions, kind, max_seq)
+                                   unit[i], x, positions, kind, max_seq,
+                                   kind=kind)
                     for name, t in st.items():
                         cache["units"][i][name][u].copy_(t)
             first = len(params["layers"]) * len(pattern)
             for i, p in enumerate(params.get("rem_layers", ())):
                 x, st = _layer(self._hybrid_layer, first + i, p, x,
-                               positions, pattern[i], max_seq)
+                               positions, pattern[i], max_seq,
+                               kind=pattern[i])
                 for name, t in st.items():
                     cache["rem"][i][name].copy_(t)
         else:  # encdec
@@ -661,7 +723,8 @@ class Model:
         fam = cfg.family
         token = torch.as_tensor(token, device=self.device)
         pos = int(pos)
-        x = embed_lookup(params["embed"], token[:, None])[:, 0]    # [B, d]
+        x = embed_lookup(params["embed"], token[:, None],
+                         cfg.embedding_multiplier)[:, 0]           # [B, d]
         if fam in ("dense", "vlm", "moe"):
             W = attn_lib.global_window(cache["k"].shape[2])
 
@@ -693,11 +756,11 @@ class Model:
                     st = {name: t[u] for name, t in
                           cache["units"][i].items()}
                     x = _layer(self._hybrid_decode, u * len(pattern) + i,
-                               unit[i], x, kind, st, pos)
+                               unit[i], x, kind, st, pos, kind=kind)
             first = len(params["layers"]) * len(pattern)
             for i, p in enumerate(params.get("rem_layers", ())):
                 x = _layer(self._hybrid_decode, first + i, p, x, pattern[i],
-                           cache["rem"][i], pos)
+                           cache["rem"][i], pos, kind=pattern[i])
         else:  # encdec
             W = attn_lib.global_window(cache["k"].shape[2])
 

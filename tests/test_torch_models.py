@@ -232,13 +232,26 @@ def test_init_shapes_match_jax(arch):
     assert shapes(mine) == shapes(conv)
 
 
+def twin_fields(cfg) -> dict:
+    """The fields of a port config that the JAX package's has too; the
+    port's own (``PORT_FIELDS``) must sit at their neutral values."""
+    import dataclasses
+    from repro_torch.models.config import PORT_FIELDS
+    fields = dataclasses.asdict(cfg)
+    assert {k: fields.pop(k) for k in PORT_FIELDS} == PORT_FIELDS
+    return fields
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_are_the_references(arch):
+    """The ten twins field for field (``granite-4.0-h-micro``, the one
+    port-only architecture, has no JAX config: ``tests/
+    test_torch_hybrid.py`` holds it to the benchmark's reference)."""
     import dataclasses
     mine, theirs = get_config(arch), rget_config(arch)
-    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert twin_fields(mine) == dataclasses.asdict(theirs)
     assert mine.param_count() == theirs.param_count()
-    assert dataclasses.asdict(mine.reduced()) == \
+    assert twin_fields(mine.reduced()) == \
         dataclasses.asdict(theirs.reduced())
 
 

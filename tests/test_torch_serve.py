@@ -94,5 +94,9 @@ def test_server_without_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("preset", ["smoke", "100m", "full"])
 def test_presets_are_the_references(arch, preset):
-    assert (dataclasses.asdict(serve.preset_config(arch, preset))
-            == dataclasses.asdict(rpreset_config(arch, preset)))
+    """The JAX package's presets, field for field, with the port's own
+    fields at their neutral values."""
+    from repro_torch.models.config import PORT_FIELDS
+    mine = dataclasses.asdict(serve.preset_config(arch, preset))
+    assert {k: mine.pop(k) for k in PORT_FIELDS} == PORT_FIELDS
+    assert mine == dataclasses.asdict(rpreset_config(arch, preset))

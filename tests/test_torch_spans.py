@@ -169,7 +169,10 @@ def test_server_run_records_each_decode_step_and_first_token():
     assert sorted(first) == [10, 11, 12]
     assert all(run.start_ns < ns < run.end_ns for ns in first.values())
     (prefill,) = [r for r in recs if r.name == "serve.prefill"]
-    assert prefill.attrs == {"positions": 3 * 12, "prompt_tokens": 28}
+    # k and v: 2 layers x 3 rows x 24 slots x 2 kv heads x 16 x 2 bytes.
+    assert prefill.attrs == {"positions": 3 * 12, "prompt_tokens": 28,
+                             "kv_bytes": 2 * 2 * 3 * 24 * 2 * 16 * 2,
+                             "state_bytes": 0}
     assert [r.name for r in recs if r.parent is run] == [
         "serve.submit", "serve.prefill"] + ["serve.decode_step"] * 4
     steps = [r for r in recs if r.name == "serve.decode_step"]
