@@ -12,7 +12,7 @@ without the final result line):
    ptxas's registers, stack and spills of each attention backward kernel,
    none of the last two allowed at dh 64, 80 and 128, and of the SSD
    kernels (the forward with and without its chunk states, the backward's
-   two), none allowed;
+   two) and of the causal conv's, none allowed;
 2. kernel — the ``dvfs_opt`` CUDA kernel against its plain torch version
    on the card, on a 1,048,576-row fuzz matrix made from ``--seed`` plus the
    app-library rows, and on the rows of ``dvfs_opt.edge_rows`` (a NaN in
@@ -102,7 +102,19 @@ without the final result line):
    the bound (the function's operands only; the bytes of chunk states and
    state cotangents the design moves besides are printed beside it), and
    the forward with and without writing its chunk states;
-13. adamw — ``csrc/adamw.cu`` (the multi-tensor AdamW update and its
+13. causal conv — ``csrc/causal_conv.cu`` (Mamba-2's depthwise causal conv
+   with its bias and SiLU, forward and backward) against its plain version
+   run in float32 at granite-4.0-h-micro's and mamba2-370m's training
+   shapes (B 1 x S 16,384 x C 4,352 and B 8 x S 2,048 x C 2,304, each a
+   strided view of an in_proj-shaped output), with and without a conv
+   state: y, dx, dw, db and the state's gradient; two backward calls
+   bit-equal; plain renderings of four faults the bar must catch (a window
+   one step into the future, the oldest tap dropped, the bias left out,
+   SiLU's derivative left out of the gradient); forward and backward timed
+   beside their byte bounds, the plain version as the model ran it before
+   the kernels (bf16; autograd's backward) and ``F.conv1d`` + ``F.silu``
+   (a yardstick the port never calls);
+14. adamw — ``csrc/adamw.cu`` (the multi-tensor AdamW update and its
    per-leaf norms) against the plain per-leaf loop on h2o-danube-1.8b's and
    mamba2-370m's parameter sets at full size and on a set of odd sizes
    (one element, three, none, 4,097, 2^20 + 5, a leaf 4 bytes past a
@@ -112,7 +124,7 @@ without the final result line):
    no gradient copied; at danube's 1.83B parameters the kernel's time
    beside its 32-bytes-an-element bound, the plain loop's and
    ``torch._fused_adamw_``'s (a yardstick the port never calls);
-14. train danube — the training path: h2o-danube-1.8b at full width and
+15. train danube — the training path: h2o-danube-1.8b at full width and
    depth (24 layers), B 8, S 2048, ``succ`` data, the reference launcher's
    AdamW and schedule, remat on: the first step's loss and gradient norm
    through the kernels against the same step through the plain versions;
@@ -121,17 +133,17 @@ without the final result line):
    replayed losses must equal the first run's bit for bit), the launch
    counts of the run checked exactly; step seconds, tokens/s, peak memory,
    and one profiled step's device idle share and the kernels' shares;
-15. train mamba2 — the ssm family's training path: mamba2-370m at full
+16. train mamba2 — the ssm family's training path: mamba2-370m at full
    width and depth (48 layers), B 8, S 2048, ``succ`` data, the same AdamW
    and remat: the first step's loss and gradient norm through the kernels
    against the plain versions, then 5 steps with their launch counts
-   checked exactly (the SSD forward twice a layer, the backward once);
-   step seconds, tokens/s, peak memory, one profiled step's idle share and
-   the SSD kernels' shares;
-16. train families — one train step of the ``smoke`` preset of each other
+   checked exactly (the SSD forward and the causal conv's twice a layer,
+   their backwards once); step seconds, tokens/s, peak memory, one
+   profiled step's idle share and the SSD and conv kernels' shares;
+17. train families — one train step of the ``smoke`` preset of each other
    family on the card (moe, hybrid, encdec, vlm, ssm: finite loss and
    gradient norm, the family's backward kernel launched);
-17. mesh — the multi-device layer on the one card: the online day's
+18. mesh — the multi-device layer on the one card: the online day's
    largest launch matrix (99,328 rows) and a 300k-row fuzz matrix through
    ``dvfs_solve_matrix`` split over ``[cuda:0, cuda:0]`` (``ops.solve_devices``
    listing the card twice; padding, two
@@ -148,9 +160,10 @@ without the final result line):
    restored with ``shardings=`` onto the mesh, every leaf equal; the
    serve and step times with and without the mesh, beside the card's name
    and power limit;
-18. dryrun — the dry-run (``launch/dryrun.py``) against the card:
-   ``torch.library.opcheck`` of the four model kernels' custom ops on real
-   inputs at danube's attention shape and mamba2-370m's SSD shape, and
+19. dryrun — the dry-run (``launch/dryrun.py``) against the card:
+   ``torch.library.opcheck`` of the model kernels' custom ops on real
+   inputs at danube's attention shape and mamba2-370m's SSD and conv
+   shapes, and
    the host time the dispatcher adds to a call; the card's memory size;
    h2o-danube-1.8b's ``train_4k`` cell at B 4 (16,384 tokens) traced with
    fake CUDA tensors on a fake (1, 1) mesh, no kernel launched, and the
@@ -160,7 +173,7 @@ without the final result line):
    cell on the 256-rank fake production mesh with its probes (ok, FLOPs,
    collectives, live bytes, the reference's 4 microbatches), its record
    written to ``results/dryrun/``;
-19. tp — the model axis split over ranks (``partition.py``'s tensor and
+20. tp — the model axis split over ranks (``partition.py``'s tensor and
    expert parallelism): with two or more cards one rank a card over NCCL
    on a (1, n) mesh (n 2 or 4), with one card two processes on it over
    gloo (``DTensor``'s functional collectives routed through the process
@@ -405,6 +418,25 @@ SSD_BWD_SHAPES = (
 SSD_BWD_BAR = 4e-2
 # The backward's two launches, as the profiler names them.
 SSD_BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_chunk")
+# Mamba-2's causal conv (csrc/causal_conv.cu) at the training shapes of the
+# two cells that run it, granite-4.0-h-micro's and mamba2-370m's: the (x, B,
+# C) columns of an in_proj-shaped output [B, S, 2 d_inner + 2 N + H], the
+# strided view the model hands the kernel.  (name, (B, S, d_inner, N, H))
+CONV_SHAPES = (("granite", (1, 16384, 4096, 128, 64)),
+               ("mamba2", (8, 2048, 2048, 128, 32)))
+CONV_WIDTH = 4
+# The conv's kernels against the plain version run in float32 on the same
+# bf16 operands: the normalised error of y, dx, dw, db and the state's
+# gradient.  The kernels compute in float32 and round each output to bf16
+# once, so each reads at most half a bf16 ulp, 2^-8 of the value (3.9e-3);
+# on an H100 at 700 W (this phase, both shapes) y 3.5e-3, dx 3.5e-3, dw
+# 2.9e-3, db 2.9e-3, the state's gradient 1.0e-6.  The bar is 2.5 times
+# the half ulp; the model's own bf16 conv reads 1.9-2.1e-2 against the same
+# float32 answer, and the plain renderings of the faults 2.2-14.
+CONV_BAR = 1e-2
+# The conv's launches, as the profiler names them.
+CONV_KERNELS = ("causal_conv1d_fwd", "causal_conv1d_bwd_dx",
+                "causal_conv1d_bwd_dw")
 
 # The training phases: h2o-danube-1.8b at full width and depth, the batch
 # and length of the serving phase's prompts, the JAX launcher's defaults
@@ -992,6 +1024,23 @@ def main(argv=None) -> int:
     spilled = [f"{row['kernel']}<{row['args']}>" for row in ssd
                if row["stack"] or row["spill_stores"] or row["spill_loads"]]
     checks.expect(not spilled, f"build: stack or spills in {spilled}")
+    # The causal conv's kernels (forward and backward at widths 1 to 4 and
+    # 4, 2 or 1 channels a load, and the backward's sum) run with no stack
+    # and no spills.
+    conv_rows = [row for row in ptxas_table(log.getvalue())
+                 if row["kernel"].startswith("causal_conv1d")]
+    for row in conv_rows:
+        if row["args"] in ("4, 4", ""):
+            print(f"phase build ptxas {row['kernel']}<{row['args']}>: "
+                  f"{row['registers']} registers, {row['stack']} bytes "
+                  f"stack, {row['spill_stores']} / {row['spill_loads']} "
+                  "bytes spill stores / loads", flush=True)
+    checks.expect(len(conv_rows) == 2 * 4 * 3 + 1,
+                  f"build: ptxas lines of {len(conv_rows)} causal conv "
+                  "kernels, 25 expected")
+    spilled = [f"{row['kernel']}<{row['args']}>" for row in conv_rows
+               if row["stack"] or row["spill_stores"] or row["spill_loads"]]
+    checks.expect(not spilled, f"build: stack or spills in {spilled}")
 
     # ---- phase 2: the kernel against its plain version on the card.
     mat = fuzz_matrix(np, dvfs, tasks, args.seed, FUZZ_ROWS)
@@ -1215,6 +1264,7 @@ def main(argv=None) -> int:
              for arch, layers in SERVE_ARCHS}
     attn_bwd = attention_bwd_phase(checks, torch, dev, args.seed)
     ssd_bwd = ssd_bwd_phase(checks, torch, dev, args.seed)
+    conv = causal_conv_phase(checks, torch, dev, args.seed)
     adamw = adamw_phase(checks, np, torch, dev, args.seed)
     train = train_danube_phase(checks, np, torch, dev, args.seed)
     train_ssm = train_mamba2_phase(checks, np, torch, dev, args.seed)
@@ -1305,7 +1355,21 @@ def main(argv=None) -> int:
         "launches_train": {"danube": {k: train["launches"][k] for k in (
             "adamw_sq_norms", "adamw_update")},
             "mamba2": {k: train_ssm["launches"][k] for k in (
-                "adamw_sq_norms", "adamw_update")}}}]}),
+                "adamw_sq_norms", "adamw_update")}}}, {
+        "name": "causal_conv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+        "replaces": "none: the JAX package leaves Mamba-2's conv "
+                    "(src/repro/models/ssm.py:53 _causal_conv) to XLA",
+        **conv["granite"], "shapes": conv,
+        "serve": {arch: serve[arch]["launches"]["causal_conv"]
+                  for arch, _ in SERVE_ARCHS
+                  if "causal_conv" in serve[arch]["launches"]},
+        "launches_train": {k: train_ssm["launches"][k] for k in (
+            "causal_conv", "causal_conv_bwd")},
+        "launches_tp": [{k: r[k] for k in ("causal_conv", "causal_conv_bwd")}
+                        for r in tp.get("launches", [])],
+        "opcheck": {k: dry["opcheck"][k] for k in (
+            "causal_conv", "causal_conv_bwd")}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1709,18 +1773,22 @@ def ssd_phase(checks, torch, dev, seed: int, key: str = "mamba2",
 
 
 @contextlib.contextmanager
-def model_kernels(attn_fn, ssd_fn):
-    """Put ``attn_fn`` and ``ssd_fn`` where the model calls its two kernels
-    (``blockwise_attention`` and ``ssd_chunked`` call them by these names),
-    for comparisons on the same weights and tokens."""
+def model_kernels(attn_fn, ssd_fn, conv_fn):
+    """Put ``attn_fn``, ``ssd_fn`` and ``conv_fn`` where the model calls its
+    three kernels (``blockwise_attention``, ``ssd_chunked`` and
+    ``mamba2_block`` call them by these names), for comparisons on the same
+    weights and tokens."""
     from repro_torch.models import attention, ssm
 
-    saved = attention.flash_attention_kernel, ssm.ssd_scan_kernel
-    attention.flash_attention_kernel, ssm.ssd_scan_kernel = attn_fn, ssd_fn
+    saved = (attention.flash_attention_kernel, ssm.ssd_scan_kernel,
+             ssm.causal_conv_kernel)
+    (attention.flash_attention_kernel, ssm.ssd_scan_kernel,
+     ssm.causal_conv_kernel) = attn_fn, ssd_fn, conv_fn
     try:
         yield
     finally:
-        attention.flash_attention_kernel, ssm.ssd_scan_kernel = saved
+        (attention.flash_attention_kernel, ssm.ssd_scan_kernel,
+         ssm.causal_conv_kernel) = saved
 
 
 @contextlib.contextmanager
@@ -1757,7 +1825,9 @@ def paired_kernels(errs: list):
     """``model_kernels`` arguments that run each call through the kernel and
     through its plain version on the same inputs, append (kernel name,
     normalised error) of each call to ``errs`` and go on with the kernel's
-    result."""
+    result.  The conv's kernel is held to the plain version run in float32
+    (its own arithmetic: the bf16 plain version rounds every product)."""
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1776,7 +1846,14 @@ def paired_kernels(errs: list):
         errs.append(("ssd_scan", max(norm_err(y, y_p), norm_err(fin, fin_p))))
         return y, fin
 
-    return attn, ssd
+    def conv(x, w, b, state=None):
+        y = cc.causal_conv_kernel(x, w, b, state)
+        y_p = cc.causal_conv_plain(x.float(), w.float(), b.float(),
+                                   None if state is None else state.float())
+        errs.append(("causal_conv", norm_err(y, y_p)))
+        return y
+
+    return attn, ssd, conv
 
 
 def prefill_vs_decode(torch, model, params, toks, vocab: int):
@@ -1855,7 +1932,10 @@ def reference_gaps(torch, model, params, seed: int, toks, vocab: int,
 def kernel_calls(cfg, kernel: str) -> int:
     """Calls of ``kernel`` in one prefill: one per attention of an attention
     layer (whisper's decoder layers attend twice, to themselves and to the
-    encoder), one per SSD layer; none of any other kernel."""
+    encoder), one per SSD layer of the SSD scan and of the causal conv
+    before it; none of any other kernel."""
+    if kernel == "causal_conv":
+        kernel = "ssd_scan"
     if kernel not in ("flash_attention", "ssd_scan"):
         return 0
     if cfg.family == "hybrid":
@@ -1924,6 +2004,7 @@ def serve_phase(checks, np, torch, dev, arch: str, layers,
     # whole prefill through the kernels against the same prefill through
     # the plain versions, where the layers' differences compound; and
     # prefill against decode on each path.
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1933,7 +2014,8 @@ def serve_phase(checks, np, torch, dev, arch: str, layers,
     with model_kernels(*paired_kernels(layer_errs)):
         model.prefill(srv.params, prompt_batch(cfg, toks[:, :s0]),
                       max_seq=SERVE_PROMPT + 8)
-    bars = {"flash_attention": ATTN_BAR, "ssd_scan": SSD_BAR}
+    bars = {"flash_attention": ATTN_BAR, "ssd_scan": SSD_BAR,
+            "causal_conv": CONV_BAR}
     worst = max(range(len(layer_errs)),
                 key=lambda i: layer_errs[i][1] / bars[layer_errs[i][0]])
     bar = bars[layer_errs[worst][0]]
@@ -1949,7 +2031,8 @@ def serve_phase(checks, np, torch, dev, arch: str, layers,
         (k_logits, k_cache), rel, errs, finite = prefill_vs_decode(
             torch, model, srv.params, toks, V)
     before = {name: fn.launches for name, fn in counters.items()}
-    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain), \
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain,
+                       cc.causal_conv_plain), \
             moe_routing_replay(routes, record=False):
         (p_logits, p_cache), p_rel, p_errs, p_finite = prefill_vs_decode(
             torch, model, srv.params, toks, V)
@@ -2064,8 +2147,8 @@ def kernel_label(mangled: str) -> tuple:
     ("flash_bwd_dkdv", "80, prefix") for ``..._flash_bwd_dkdvILi80ELb1EEEv
     ...``; the attention kernels' flags are the prefix's and then the
     lse's, the SSD forward's the chunk states'."""
-    k = re.search(r"\d+((?:flash|ssd)_\w+?)(?:I(.*?)E)?(?:E?v14|E?NS|Ev)",
-                  mangled)
+    k = re.search(r"\d+((?:flash|ssd|causal_conv1d)_\w+?)(?:I(.*?)E)?"
+                  r"(?:E?v14|E?NS|Ev|EP)", mangled)
     if k is None:
         return mangled, ""
     found = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
@@ -2102,14 +2185,17 @@ def ptxas_table(log: str) -> list:
 
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from repro_torch.kernels import adamw, dvfs_opt, flash_attention, ssd_scan
+    from repro_torch.kernels import (adamw, causal_conv, dvfs_opt,
+                                     flash_attention, ssd_scan)
     return {"dvfs_opt": dvfs_opt.dvfs_solve_cuda,
             "flash_attention": flash_attention.flash_attention_cuda,
             "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
             "ssd_scan": ssd_scan.ssd_scan_cuda,
             "ssd_scan_bwd": ssd_scan.ssd_scan_bwd_cuda,
             "adamw_sq_norms": adamw.sq_norms_cuda,
-            "adamw_update": adamw.update_cuda}
+            "adamw_update": adamw.update_cuda,
+            "causal_conv": causal_conv.causal_conv_cuda,
+            "causal_conv_bwd": causal_conv.causal_conv_bwd_cuda}
 
 
 def attention_bwd_phase(checks, torch, dev, seed: int) -> dict:
@@ -2374,6 +2460,171 @@ def ssd_bwd_phase(checks, torch, dev, seed: int) -> dict:
     return out
 
 
+def conv_faults(cc, torch, x, w, b, state, dy, want, want_grads) -> dict:
+    """Plain renderings (float32) of the faults the conv's bar is there
+    for, each one's normalised error against the right answer ``want`` (y)
+    and ``want_grads`` (dx, dw, db; the worst of the three): a window one
+    step into the future (anti-causal), the oldest tap dropped, the bias
+    left out, each in y and in the gradient of the faulty conv; and SiLU's
+    derivative left out of the gradient (g = dy).  (y's error or None,
+    the gradients' error) by fault."""
+    B, S, C = x.shape
+    W = w.shape[0]
+    pad = x.new_zeros((B, W - 1, C)) if state is None else state
+    full = torch.cat([pad, x, x.new_zeros((B, 1, C))], dim=1)[:, 1:]
+    no_tap = w.clone()
+    no_tap[0] = 0
+    renders = {"anti-causal shift": (full[:, W - 1:], w, b, full[:, :W - 1]),
+               "dropped tap": (x, no_tap, b, state),
+               "missing bias": (x, w, torch.zeros_like(b), state)}
+
+    def worst(grads):
+        return max(norm_err(g, r) for g, r in zip(grads[:3], want_grads[:3]))
+
+    out = {name: (norm_err(cc.causal_conv_plain(*args), want),
+                  worst(cc.causal_conv_bwd_plain(*args, dy)))
+           for name, args in renders.items()}
+    out["silu derivative dropped"] = (
+        None, worst(cc.conv_bwd_from_g(dy.float(), x, w, state)))
+    return out
+
+
+def conv_library(torch, x, w, b):
+    """``F.conv1d(groups=C)`` + ``F.silu`` on x [B, S, C]: the conv as one
+    PyTorch call computes it (channels first; a yardstick the port never
+    calls)."""
+    import torch.nn.functional as F
+    W, S = w.shape[0], x.shape[1]
+    u = F.conv1d(x.transpose(1, 2), w.t().unsqueeze(1), b, padding=W - 1,
+                 groups=x.shape[2])
+    return F.silu(u[..., :S]).transpose(1, 2)
+
+
+def causal_conv_phase(checks, torch, dev, seed: int) -> dict:
+    """The causal conv's kernels (``csrc/causal_conv.cu``) against the plain
+    version run in float32 at ``CONV_SHAPES``, with and without a conv
+    state: y, dx, dw, db and the state's gradient; two backward calls
+    bit-equal; plain renderings of four faults above the bar
+    (``conv_faults``).  Without a state (the training path) each timed
+    beside its byte bound, the plain version as the model ran it before
+    the kernels (bf16; its backward by autograd) and ``F.conv1d`` +
+    ``F.silu`` (``conv_library``), forward and backward."""
+    from repro_torch.kernels import causal_conv as cc
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen,
+                                    device=dev)).to(torch.bfloat16)
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    names = ("dx", "dw", "db", "dstate")
+    out = {}
+    for key, (B, S, di, N, H) in CONV_SHAPES:
+        C = di + 2 * N
+        zxbcdt = rand(B, S, 2 * di + 2 * N + H)
+        x = zxbcdt[..., di:di + C]
+        w, b = rand(CONV_WIDTH, C, scale=0.5), rand(C, scale=0.5)
+        dy, conv_state = rand(B, S, C), rand(B, CONV_WIDTH - 1, C)
+        width = cc.vector_width(x, dy)
+        for state in (None, conv_state):
+            name = key if state is None else f"{key}_state"
+            want = cc.causal_conv_plain(x.float(), w.float(), b.float(),
+                                        f32(state))
+            got = cc.causal_conv_cuda(x, w, b, state)
+            wants = cc.causal_conv_bwd_plain(x.float(), w.float(), b.float(),
+                                             f32(state), dy.float())
+            grads = cc.causal_conv_bwd_cuda(x, w, b, state, dy)
+            again = cc.causal_conv_bwd_cuda(x, w, b, state, dy)
+            twice = all(torch.equal(u, v) for u, v in zip(grads, again))
+            del again
+            errs = {"y": norm_err(got, want)}
+            errs.update({n: norm_err(g, r) for n, g, r in zip(names, grads,
+                                                               wants)
+                         if r is not None})
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in (got, *grads))
+            plain_err = norm_err(cc.causal_conv_plain(x, w, b, state), want)
+            faults = conv_faults(cc, torch, x.float(), w.float(), b.float(),
+                                 f32(state), dy.float(), want, wants)
+            low = min(e for pair in faults.values() for e in pair
+                      if e is not None)
+            checks.expect(finite and max(errs.values()) <= CONV_BAR,
+                          f"causal conv {name}: finite {finite}, norm errs "
+                          f"{errs} <= {CONV_BAR}")
+            checks.expect(twice, f"causal conv {name}: two backward calls "
+                          "on the same inputs give every gradient bit-equal")
+            checks.expect(low > CONV_BAR,
+                          f"causal conv {name}: every fault's norm err "
+                          f"{faults} exceeds the bar {CONV_BAR}")
+            row = {"norm_errs": errs, "plain_bf16_norm_err": plain_err,
+                   "fault_norm_errs": faults, "bit_equal_twice": twice,
+                   "vector_width": width,
+                   "shape": [B, S, C, CONV_WIDTH, "state" if state is not None
+                             else "no state"]}
+            del want, got, wants, grads
+            if state is None:
+                row.update(conv_timing(torch, cc, x, w, b, dy))
+            out[name] = row
+            print(f"phase causal conv {name}: B {B} S {S} C {C} W "
+                  f"{CONV_WIDTH} (x a view of [B, S, {zxbcdt.shape[-1]}] "
+                  f"from column {di}, {width} channels a load), state "
+                  f"{state is not None}: norm err "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + f" (the plain bf16 conv's y {plain_err:.3e}); two "
+                  f"backward calls bit-equal {twice}; plain renderings of "
+                  "faults, norm err of y / of the gradients: "
+                  + ", ".join(f"{n} {'-' if e is None else f'{e:.3e}'} / "
+                              f"{g:.3e}" for n, (e, g) in faults.items())
+                  + "".join(f"; {k} {v}" for k, v in row.items()
+                            if k.endswith("_ms")), flush=True)
+        del zxbcdt, x, w, b, dy, conv_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def conv_timing(torch, cc, x, w, b, dy) -> dict:
+    """The conv's forward and backward kernels timed (events, back to back;
+    each launch's device time by the profiler) beside their byte bounds,
+    the plain version as the model ran it before the kernels (bf16; the
+    backward by autograd: forward and backward less the forward) and
+    ``conv_library`` (the same way)."""
+    B, S, C = x.shape
+    xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+
+    def grad_of(fn):
+        def run():
+            torch.autograd.grad(fn(xg, wg, bg), (xg, wg, bg), dy)
+        return run
+
+    row = {"ms": event_ms(torch, lambda: cc.causal_conv_cuda(x, w, b), 20),
+           "bwd_ms": event_ms(
+               torch, lambda: cc.causal_conv_bwd_cuda(x, w, b, None, dy), 20),
+           "plain_ms": event_ms(torch, lambda: cc.causal_conv_plain(x, w, b),
+                                5)}
+    row["plain_bwd_ms"] = (event_ms(torch, grad_of(cc.causal_conv_plain), 5)
+                           - row["plain_ms"])
+    try:
+        row["library_ms"] = event_ms(torch, lambda: conv_library(
+            torch, x, w, b), 10)
+        row["library_bwd_ms"] = (event_ms(torch, grad_of(
+            lambda *a: conv_library(torch, *a)), 5) - row["library_ms"])
+    except (RuntimeError, TypeError) as err:
+        row["library_ms"] = row["library_bwd_ms"] = None
+        print(f"phase causal conv: F.conv1d not timed: {err}", flush=True)
+    launch = device_ms(torch, lambda: (
+        cc.causal_conv_cuda(x, w, b), cc.causal_conv_bwd_cuda(
+            x, w, b, None, dy)), CONV_KERNELS, 10)
+    row["device_ms"] = launch
+    row["bound_ms"] = cc.conv_bytes(B, S, C) / PEAK_BYTES * 1e3
+    row["bwd_bound_ms"] = (cc.conv_bytes(B, S, C, backward=True)
+                           / PEAK_BYTES * 1e3)
+    row["bound_by"] = "bytes"
+    return row
+
+
 def adamw_leaf_sets() -> dict:
     """Leaf sizes by set: danube's and mamba2-370m's parameters at full
     width and depth (their shapes, nothing allocated), and the odd set."""
@@ -2549,6 +2800,7 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
 
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import adamw
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.train import WARMUP, preset_config
@@ -2574,7 +2826,8 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
     batch0 = put(data.batch(0))
     k_loss, k_norm = _loss_and_grad_norm(torch, model, state.params, batch0)
     before = {name: fn.launches for name, fn in counters.items()}
-    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain):
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain,
+                       cc.causal_conv_plain):
         p_loss, p_norm = _loss_and_grad_norm(torch, model, state.params,
                                              batch0)
     plain_launches = {name: fn.launches - before[name]
@@ -2634,7 +2887,8 @@ def train_danube_phase(checks, np, torch, dev, seed: int) -> dict:
     n = len(steps_run)
     want = {"dvfs_opt": 0, "flash_attention": 2 * L * n,
             "flash_attention_bwd": L * n, "ssd_scan": 0, "ssd_scan_bwd": 0,
-            "adamw_sq_norms": 2 * n, "adamw_update": n}
+            "adamw_sq_norms": 2 * n, "adamw_update": n, "causal_conv": 0,
+            "causal_conv_bwd": 0}
     checks.expect(launches == want,
                   f"train: launches {launches} over {n} steps, want {want} "
                   "(the forward kernel twice a layer with remat, the "
@@ -2727,6 +2981,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     one profiled step."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import adamw
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.train import WARMUP, preset_config
@@ -2752,7 +3007,8 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     batch0 = put(data.batch(0))
     k_loss, k_norm = _loss_and_grad_norm(torch, model, state.params, batch0)
     before = {name: fn.launches for name, fn in counters.items()}
-    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain):
+    with model_kernels(fa.flash_attention_plain, ss.ssd_scan_plain,
+                       cc.causal_conv_plain):
         p_loss, p_norm = _loss_and_grad_norm(torch, model, state.params,
                                              batch0)
     plain_launches = {name: fn.launches - before[name]
@@ -2794,13 +3050,14 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     n = TRAIN_SSM_STEPS
     want = {name: 0 for name in counters}
     want.update(ssd_scan=2 * L * n, ssd_scan_bwd=L * n,
-                adamw_sq_norms=2 * n, adamw_update=n)
+                adamw_sq_norms=2 * n, adamw_update=n,
+                causal_conv=2 * L * n, causal_conv_bwd=L * n)
     checks.expect(launches == want,
                   f"train {TRAIN_SSM_ARCH}: launches {launches} over {n} "
-                  f"steps, want {want} (the forward kernel twice a layer "
-                  "with remat, each time writing its chunk states, the "
-                  "backward once: two kernel launches a call; AdamW's three "
-                  "a step)")
+                  f"steps, want {want} (the forward kernels twice a layer "
+                  "with remat, the SSD scan each time writing its chunk "
+                  "states, the backward ones once: two kernel launches a "
+                  "call; AdamW's three a step)")
     checks.expect(grad_copies == 0,
                   f"train {TRAIN_SSM_ARCH}: {grad_copies} gradients copied "
                   "to be contiguous")
@@ -2824,6 +3081,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
     bwd_ms, n_bwd = device_split(events, "ssd_bwd")[0]["kernel"]
     state_ms, chunk_ms = (device_split(events, k)[0]["kernel"][0]
                           for k in SSD_BWD_KERNELS)
+    conv_ms, n_conv = device_split(events, "causal_conv1d")[0]["kernel"]
     mm_ms = split["matmuls"][0]
     step_med = statistics.median(step_s[1:])   # the first step warms up
     result = {
@@ -2838,6 +3096,7 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
         "ssd_fwd_ms": fwd_ms, "ssd_fwd_share": fwd_ms / busy,
         "ssd_bwd_ms": bwd_ms, "ssd_bwd_share": bwd_ms / busy,
         "ssd_bwd_state_ms": state_ms, "ssd_bwd_chunk_ms": chunk_ms,
+        "causal_conv_ms": conv_ms, "causal_conv_launches": n_conv,
         "matmul_ms": mm_ms, "matmul_share": mm_ms / busy,
         "rest_ms": split["rest"][0], "rest_share": split["rest"][0] / busy}
     print(f"phase train {TRAIN_SSM_ARCH}: {n_params} parameters, {L} "
@@ -2856,7 +3115,9 @@ def train_mamba2_phase(checks, np, torch, dev, seed: int) -> dict:
           f"x{n_bwd} ({bwd_ms / busy:.1%}; ssd_bwd_state {state_ms:.3f} ms "
           f"and ssd_bwd_chunk {chunk_ms:.3f} ms of it), ssd_scan "
           f"{fwd_ms:.3f} ms "
-          f"x{n_fwd} ({fwd_ms / busy:.1%}), matmuls {mm_ms:.3f} ms "
+          f"x{n_fwd} ({fwd_ms / busy:.1%}), the causal conv's kernels "
+          f"{conv_ms:.3f} ms x{n_conv} ({conv_ms / busy:.1%}, in the "
+          f"rest), matmuls {mm_ms:.3f} ms "
           f"({mm_ms / busy:.1%}), the rest {split['rest'][0]:.3f} ms "
           f"({split['rest'][0] / busy:.1%}); top of the rest: {top}",
           flush=True)
@@ -2893,7 +3154,8 @@ def train_families_phase(checks, torch, dev, seed: int) -> dict:
         state, m = step(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         launches = {name: fn.launches for name, fn in counters.items()}
-        bwd = [f"{name}_bwd" for name in ("flash_attention", "ssd_scan")
+        bwd = [f"{name}_bwd" for name in ("flash_attention", "ssd_scan",
+                                          "causal_conv")
                if kernel_calls(cfg, name)]
         checks.expect(math.isfinite(loss) and math.isfinite(gnorm) and bwd
                       and all(launches[name] > 0 for name in bwd),
@@ -3095,7 +3357,8 @@ def mesh_phase(checks, np, torch, dev, seed: int) -> dict:
         want = {"dvfs_opt": 0, "flash_attention": 2 * L + 2 * L * steps,
                 "flash_attention_bwd": L * steps, "ssd_scan": 0,
                 "ssd_scan_bwd": 0, "adamw_sq_norms": 2 * (steps + 2),
-                "adamw_update": steps + 2}
+                "adamw_update": steps + 2, "causal_conv": 0,
+                "causal_conv_bwd": 0}
         checks.expect(launches == want,
                       f"mesh: launches {launches} on the mesh path (serve "
                       f"{serve_launches}), want {want}")
@@ -3160,10 +3423,11 @@ def mesh_phase(checks, np, torch, dev, seed: int) -> dict:
 
 
 def opcheck_phase(checks, torch, dev, seed: int) -> dict:
-    """``torch.library.opcheck`` of the four model kernels' custom ops on
-    real CUDA inputs: danube's attention shape (the forward with its lse,
-    the backward from the forward's own output) and mamba2-370m's SSD shape
-    (the forward with its chunk states, the backward from them).  Each of
+    """``torch.library.opcheck`` of the model kernels' custom ops on real
+    CUDA inputs: danube's attention shape (the forward with its lse, the
+    backward from the forward's own output), mamba2-370m's SSD shape (the
+    forward with its chunk states, the backward from them) and its causal
+    conv's (a strided view of an in_proj row, with a state).  Each of
     opcheck's tests on its own: the schema, the autograd registration, the
     fake implementation against the launch (sizes, dtypes, strides) and an
     AOT-autograd trace with dynamic shapes."""
@@ -3182,13 +3446,20 @@ def opcheck_phase(checks, torch, dev, seed: int) -> dict:
     dt = rand(Bs, Ss, Hs, dtype=torch.float32, scale=0.05).abs()
     a = -torch.rand((Hs,), generator=gen, device=dev) - 0.5
     states = torch.ops.repro_torch.ssd_scan(x, dt, a, b, c, None, True)[2]
+    Bc, Sc, di, Nc, Hc = dict(CONV_SHAPES)["mamba2"]
+    zxbcdt = rand(Bc, Sc, 2 * di + 2 * Nc + Hc)
+    xc = zxbcdt[..., di:2 * di + 2 * Nc]
+    wc, bc = rand(CONV_WIDTH, di + 2 * Nc), rand(di + 2 * Nc)
+    sc = rand(Bc, CONV_WIDTH - 1, di + 2 * Nc)
     cases = {
         "flash_attention": (q, k, v, True, None, 0, True),
         "flash_attention_bwd": (q, k, v, o, lse, rand(B, S, H, dh), True,
                                 None, 0),
         "ssd_scan": (x, dt, a, b, c, None, True),
         "ssd_scan_bwd": (x, dt, a, b, c, states, rand(Bs, Ss, Hs, P), None,
-                         False)}
+                         False),
+        "causal_conv": (xc, wc, bc, sc),
+        "causal_conv_bwd": (xc, wc, bc, sc, rand(Bc, Sc, di + 2 * Nc))}
     utils = ("test_schema", "test_autograd_registration", "test_faketensor",
              "test_aot_dispatch_dynamic")
     out = {}
@@ -3204,12 +3475,15 @@ def opcheck_phase(checks, torch, dev, seed: int) -> dict:
                       f"dryrun: opcheck of repro_torch::{name}: {res}")
     torch.cuda.synchronize()
     print("phase dryrun opcheck (danube's attention shape B 8 S 2048 H 32 "
-          "KV 8 dh 80, mamba2-370m's SSD shape B 8 S 2048 H 32 P 64 N 128): "
+          "KV 8 dh 80, mamba2-370m's SSD shape B 8 S 2048 H 32 P 64 N 128 "
+          "and its conv's, C 2,304 of an in_proj row of 4,384, with a "
+          "state): "
           + "; ".join(f"{name} "
                       + ", ".join(f"{u.removeprefix('test_')} {r}"
                                   for u, r in res.items())
                       for name, res in out.items()), flush=True)
-    del q, k, v, o, lse, x, b, c, dt, a, states, cases
+    del q, k, v, o, lse, x, b, c, dt, a, states, cases, zxbcdt, xc, wc, bc
+    del sc
 
     # What the dispatcher adds to a call: the forward through the op and
     # through its CUDA implementation called directly, at a shape so small
@@ -3326,7 +3600,8 @@ def dryrun_phase(checks, np, torch, dev, seed: int) -> dict:
     L = cfg.n_layers
     want = {"dvfs_opt": 0, "flash_attention": 2 * L,
             "flash_attention_bwd": L, "ssd_scan": 0, "ssd_scan_bwd": 0,
-            "adamw_sq_norms": 2, "adamw_update": 1}
+            "adamw_sq_norms": 2, "adamw_update": 1, "causal_conv": 0,
+            "causal_conv_bwd": 0}
     checks.expect(launches == want == plain_launches
                   and math.isfinite(loss) and math.isfinite(plain_loss),
                   f"dryrun: the real steps launched {launches} and "
@@ -3395,7 +3670,8 @@ def dryrun_phase(checks, np, torch, dev, seed: int) -> dict:
 
 
 # Kernel names as the profiler shows them, per model kernel.
-KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "ssd_scan": "ssd_fwd"}
+KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "ssd_scan": "ssd_fwd",
+                  "causal_conv": "causal_conv1d_fwd"}
 # Device kernels of a matrix product (cuBLAS and CUTLASS names).
 MATMUL_SYMBOLS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
@@ -3926,14 +4202,15 @@ def tp_phase(checks, np, torch, dev, seed: int, preset: str = "full") -> dict:
               f"{tref['peak_gib']:.3f}", flush=True)
     # Each rank: danube's attention layers once in Server.run's prefill,
     # twice in the step (remat) and the backward once; mamba2's SSD layers
-    # likewise.
+    # and their convs likewise.
     dcfg = preset_config("h2o-danube-1.8b", preset)
     mcfg = preset_config("mamba2-370m", preset)
     L, Ls = dcfg.n_layers, mcfg.n_layers
     want = {"dvfs_opt": 0, "flash_attention": 3 * L,
             "flash_attention_bwd": L, "ssd_scan": 3 * Ls,
             "ssd_scan_bwd": Ls, "adamw_sq_norms": 2 * len(TP_TRAIN),
-            "adamw_update": len(TP_TRAIN)}
+            "adamw_update": len(TP_TRAIN), "causal_conv": 3 * Ls,
+            "causal_conv_bwd": Ls}
     for r in ranks:
         heads = {q[2] for q, _ in r["attn_shapes"]}
         kv = {k[2] for _, k in r["attn_shapes"]}

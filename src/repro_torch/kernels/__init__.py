@@ -10,6 +10,9 @@
   ``csrc/ssd_scan.cu``;
 * ``adamw``           — AdamW's update and its per-leaf gradient norms over
   every leaf in one table (training), ``csrc/adamw.cu``;
+* ``causal_conv``     — Mamba-2's depthwise causal conv with its bias and
+  SiLU, forward and backward (ssm-family prefill and training),
+  ``csrc/causal_conv.cu``;
 * ``build``           — compiles ``csrc/*.cu`` with ``nvcc`` at first use;
 * ``ops``             — the public wrappers and the ``device=`` policy;
 * ``ref``             — the oracles the kernels are held against.
@@ -20,7 +23,8 @@ import these lazily without a cycle.
 The model kernels are ``torch.library`` custom operators (namespace
 ``repro_torch``) with fake implementations and FLOP formulas, so a
 ``FakeTensorMode`` trace and ``FlopCounterMode`` see them; AdamW's two
-are operators with fake implementations too.
+and the causal conv's two are operators with fake implementations too
+(element-wise work: no FLOP formula).
 
 Kernels take plain local tensors: a ``DTensor`` (a sharded weight of
 ``repro_torch.partition``) that reaches a kernel wrapper raises instead of

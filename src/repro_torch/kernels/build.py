@@ -27,7 +27,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("dvfs_opt", "flash_attention", "flash_attention_bwd", "ssd_scan",
-           "ssd_scan_bwd", "adamw")
+           "ssd_scan_bwd", "adamw", "causal_conv")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 #: sm_90a keeps Hopper-only instructions available.  No --use_fast_math:

@@ -10,7 +10,11 @@ state size N and head dim P::
 Prefill uses the chunked dual form (``ssd_chunked``; its jnp algorithm and
 ``segsum`` live beside the kernel, ``kernels/ssd_scan.py``); decode
 carries ``(conv_state, ssm_state)`` per layer, constant in the sequence
-length.
+length.  The block's depthwise causal conv with its bias and SiLU is
+``kernels/causal_conv.py::causal_conv_kernel``: on the CPU the reference's
+``_causal_conv`` in plain torch, on the card one hand-written kernel
+forward and one backward (``csrc/causal_conv.cu``); decode's one-token
+ring update stays plain torch.
 
 Where the rules split ``inner`` over the model axis and it divides the SSM
 heads (:func:`local_ssm_heads`), each rank computes its heads: from the
@@ -24,9 +28,10 @@ and heads.
 
 Under a ``torch.profiler`` a block is the span ``model.ssm``
 (``repro_torch.spans``) around ``ssm.conv`` (the depthwise conv and its
-history), ``ssm.scan`` (dt's softplus, the SSD scan and the skip) and
-``ssm.gate_norm`` (the gated RMSNorm and ``out_proj``); ``in_proj`` is the
-rest of it.
+history; in ``mamba2_block`` its attr ``launches`` counts the conv
+kernels' calls inside it, 0 on the plain path), ``ssm.scan`` (dt's
+softplus, the SSD scan and the skip) and ``ssm.gate_norm`` (the gated
+RMSNorm and ``out_proj``); ``in_proj`` is the rest of it.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import causal_conv
+from repro_torch.kernels.causal_conv import causal_conv_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 from repro_torch import partition, spans
 from repro_torch.models.config import ModelConfig
@@ -130,20 +137,6 @@ def _gated_norm(y: torch.Tensor, params: Params, cfg: ModelConfig,
     return (y * (1.0 + scale.float())).to(dt)
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Depthwise causal conv.  x: [B, S, Cdim]; w: [W, Cdim].
-    ``state``: [B, W-1, Cdim] trailing context; None => zero-pad."""
-    W = w.shape[0]
-    if state is None:
-        x_pad = F.pad(x, (0, 0, W - 1, 0))
-    else:
-        x_pad = torch.cat([state.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    out = sum(x_pad[:, i:i + S, :] * w[i] for i in range(W))
-    return F.silu((out + b).float()).to(x.dtype)
-
-
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
                 init_state: Optional[torch.Tensor] = None
@@ -195,11 +188,14 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     z, xbc, dt_raw = torch.split(zxbcdt, [h * p, h * p + 2 * n, h], dim=-1)
 
     conv_state, ssm_state = state if state is not None else (None, None)
-    with spans.span("ssm.conv"):
+    with spans.span("ssm.conv") as s:
+        launched = causal_conv.launches()
         new_conv = (_conv_history(xbc, conv_state, cfg.conv_width)
                     if return_state else None)
         w, bias = conv_weights(params, heads, conv_cols)
-        xbc = _causal_conv(xbc, w, bias, conv_state)
+        xbc = causal_conv_kernel(xbc, w, bias, conv_state)
+        if s is not None:
+            s.attrs["launches"] = causal_conv.launches() - launched
 
     with spans.span("ssm.scan"):
         xs, b_in, c_in = torch.split(xbc, [h * p, n, n], dim=-1)

@@ -245,7 +245,7 @@ def test_ptxas_table_reads_each_kernel():
 def test_build_paths_follow_the_source():
     assert build.KERNELS == ("dvfs_opt", "flash_attention",
                              "flash_attention_bwd", "ssd_scan",
-                             "ssd_scan_bwd", "adamw")
+                             "ssd_scan_bwd", "adamw", "causal_conv")
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR
