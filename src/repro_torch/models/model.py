@@ -16,6 +16,17 @@ layouts (``{"k", "v"}`` ``[L, B, W, KV, dh]``, ``{"conv", "ssm"}``, the
 hybrid's ``{"units", "rem"}``, the encdec's ``{"k", "v", "xk", "xv"}``) and
 ``decode_step`` updates them in place.
 
+One table (``Model._table``) is the only code that knows a family's
+layers: each entry gives a layer's parameters, its residual sublayers in
+order, each as (norm key, sublayer, parameter key), and its span
+attributes; the MLP or MoE feed-forward is chosen there once.  Each
+sublayer (attention, cross-attention, Mamba-2, RG-LRU, feed-forward) is
+written once for three modes: ``"forward"`` (its output and MoE aux loss),
+``"prefill"`` (the same, its decode state copied into the layer's views of
+the cache) and ``"decode"`` (one token, the state views read and updated
+in place).  ``forward``, ``prefill`` and ``decode_step`` walk the same
+table (``Model._walk``) and run each layer through ``Model._layer``.
+
 Every attention prefill goes through the ``flash_attention`` kernel on the
 card (whisper's encoder and cross-attention non-causal, the vlm image
 prefix bidirectional), every SSD prefill through ``ssd_scan``.  Training
@@ -53,8 +64,8 @@ the ssm family's block) and attention (``"attn"``, windowed by
 ``local_window`` or, where it is None, full) layers, each followed by an
 MLP, and keeps both kinds of decode state side by side in its cache.  The
 port's own config fields (granite-4.0-h) apply in every family where they
-are set: the embedding's multiplier, the residual multiplier of each mixer
-and MLP output (hybrid), the attention's scale and position embedding
+are set: the embedding's multiplier, the residual multiplier of every
+sublayer's output, the attention's scale and position embedding
 (``models/attention.py``) and the logits' divisor (the loss and
 :meth:`Model._logits`).
 
@@ -70,7 +81,9 @@ its spans again, under ``train.backward``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+import operator
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -181,17 +194,45 @@ def _norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
 def _residual(x: torch.Tensor, y: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """``x + y``, ``y`` times the config's residual multiplier where it is
-    not 1."""
+    not 1 (in every family where it is set)."""
     if cfg.residual_multiplier != 1.0:
         y = y * cfg.residual_multiplier
     return x + y
 
 
-def _layer(fn, i: int, *args, **attrs):
-    """``fn(*args)`` as the model's layer ``i`` (the ``model.layer`` span,
-    with ``attrs``)."""
-    with spans.span("model.layer", layer=i, **attrs):
-        return fn(*args)
+def _write(st: dict, names, new) -> None:
+    """Copy the tensors ``new`` into the cache views ``st[name]``."""
+    for name, t in zip(names, new):
+        st[name].copy_(t)
+
+
+class _Sublayer(NamedTuple):
+    """A residual sublayer: ``run(p, h, step, st)`` -> (output, MoE aux or
+    None) on the normed stream ``h``, ``init(builder)`` -> its parameters."""
+    run: Callable
+    init: Callable
+
+
+class _Layer(NamedTuple):
+    """One entry of ``Model._table``."""
+    path: tuple   # its parameters: params[path[0]][path[1]]...
+    subs: tuple   # its residual sublayers: (norm key, _Sublayer, param key)
+    attrs: dict   # the model.layer span's attributes
+    first: int = 0  # the sublayer drawn first: init(seed)'s draw order
+
+
+class _Table(NamedTuple):
+    norm: str        # every norm's kind: "rms" or "ln"
+    encoder: tuple   # whisper's encoder layers (none elsewhere)
+    layers: tuple    # the layers on the token stream
+
+
+class _Step(NamedTuple):
+    """What the sublayers read beside their input."""
+    mode: str                                 # forward, prefill, decode
+    positions: Optional[torch.Tensor] = None  # [1, S] (forward, prefill)
+    pos: int = 0                              # the decode position
+    enc: Optional[torch.Tensor] = None        # the encoder's states
 
 
 class Model:
@@ -210,29 +251,68 @@ class Model:
 
     @property
     def norm_kind(self) -> str:
-        return "ln" if self.cfg.family == "encdec" else "rms"
+        return self._table.norm
+
+    # ----- the layer table --------------------------------------------------
+    @functools.cached_property
+    def _table(self) -> _Table:
+        """The layers in order, with their parameters, sublayers and spans."""
+        cfg = self.cfg
+        fam = cfg.family
+        part = functools.partial
+        ffn = (_Sublayer(lambda p, h, *_: moe_lib.moe_mlp(p, h, cfg),
+                         part(moe_lib.init_moe, cfg=cfg)) if fam == "moe" else
+               _Sublayer(lambda p, h, *_: (mlp(p, h, cfg.mlp_type), None),
+                         part(init_mlp, d=cfg.d_model, ff=cfg.d_ff,
+                              mlp_type=cfg.mlp_type)))
+        init_attn = part(attn_lib.init_attention, cfg=cfg)
+
+        def attn(**kw):
+            return _Sublayer(part(self._attn, **kw), init_attn)
+
+        mamba = _Sublayer(part(self._scan, ssm_lib.mamba2_block,
+                               ssm_lib.mamba2_decode, ("conv", "ssm")),
+                          part(ssm_lib.init_mamba2, cfg=cfg))
+        L = range(cfg.n_layers)
+        if fam == "ssm":
+            return _Table("rms", (), tuple(
+                _Layer(("layers", i), (("ln", mamba, "mixer"),), {"layer": i})
+                for i in L))
+        if fam == "hybrid":
+            blocks = {"mamba": mamba, "attn": attn(window=cfg.local_window),
+                      "rec": _Sublayer(part(
+                          self._scan, rglru_lib.recurrent_block,
+                          rglru_lib.recurrent_block_decode, ("conv", "h")),
+                          part(rglru_lib.init_rglru_block, cfg=cfg))}
+            n = len(cfg.block_pattern)
+            whole = cfg.n_layers // n * n
+            return _Table("rms", (), tuple(
+                _Layer(("layers", i // n, i % n) if i < whole
+                       else ("rem_layers", i % n),
+                       (("ln1", blocks[kind], "block"), ("ln2", ffn, "mlp")),
+                       {"layer": i, "kind": kind})
+                for i, kind in enumerate(cfg.block_types())))
+        if fam == "encdec":
+            return _Table("ln", tuple(
+                _Layer(("enc_layers", i),
+                       (("ln1", attn(causal=False, rope=False), "attn"),
+                        ("ln2", ffn, "mlp")),
+                       {"layer": i, "encoder": True}, first=1)
+                for i in range(cfg.n_enc_layers)), tuple(
+                _Layer(("layers", i),
+                       (("ln1", attn(), "self"),
+                        ("ln2", _Sublayer(self._cross, init_attn), "cross"),
+                        ("ln3", ffn, "mlp")), {"layer": i})
+                for i in L))
+        # dense, vlm, moe
+        prefix = cfg.n_patches if fam == "vlm" else 0
+        return _Table("rms", (), tuple(
+            _Layer(("layers", i),
+                   (("ln1", attn(window=cfg.sliding_window, prefix=prefix),
+                     "attn"), ("ln2", ffn, "mlp")), {"layer": i}, first=1)
+            for i in L))
 
     # ----- construction -----------------------------------------------------
-    def _attn_mlp_layer_params(self, b: ParamBuilder, kind: str) -> Params:
-        cfg = self.cfg
-        if cfg.family == "moe":
-            ffn = moe_lib.init_moe(b, cfg)
-        else:
-            ffn = init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)
-        return {"ln1": _init_norm(b, cfg.d_model, kind),
-                "attn": attn_lib.init_attention(b, cfg),
-                "ln2": _init_norm(b, cfg.d_model, kind), "mlp": ffn}
-
-    def _hybrid_layer_params(self, b: ParamBuilder, kind: str) -> Params:
-        cfg = self.cfg
-        init = {"rec": rglru_lib.init_rglru_block,
-                "mamba": ssm_lib.init_mamba2}.get(kind,
-                                                  attn_lib.init_attention)
-        block = init(b, cfg)
-        return {"ln1": _init_norm(b, cfg.d_model, "rms"), "block": block,
-                "ln2": _init_norm(b, cfg.d_model, "rms"),
-                "mlp": init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)}
-
     def init(self, seed: int = 0) -> Params:
         """Random parameters from ``seed`` (float32 master weights, the
         reference's initializers and shapes; not its random draws)."""
@@ -253,6 +333,18 @@ class Model:
         model.init)``)."""
         return self._build(ShapeBuilder(self.device))
 
+    def _init_layer(self, b, layer: _Layer) -> Params:
+        """A table entry's parameters: each sublayer's norm and block under
+        its keys; the blocks draw from the builder from ``first`` on."""
+        subs = layer.subs
+        drawn = {key: sub.init(b)
+                 for _, sub, key in subs[layer.first:] + subs[:layer.first]}
+        out = {}
+        for ln, _, key in subs:
+            out[ln] = _init_norm(b, self.cfg.d_model, self.norm_kind)
+            out[key] = drawn[key]
+        return out
+
     def _build(self, b) -> Params:
         cfg = self.cfg
         params: Params = {
@@ -264,37 +356,19 @@ class Model:
             params["head"] = b.param((cfg.d_model, cfg.padded_vocab),
                                      ("embed", "vocab"), scale=0.02)
         params["final_norm"] = _init_norm(b, cfg.d_model, self.norm_kind)
-        fam = cfg.family
-        if fam in ("dense", "vlm", "moe"):
-            params["layers"] = [self._attn_mlp_layer_params(b, "rms")
-                                for _ in range(cfg.n_layers)]
-        elif fam == "ssm":
-            params["layers"] = [
-                {"ln": _init_norm(b, cfg.d_model, "rms"),
-                 "mixer": ssm_lib.init_mamba2(b, cfg)}
-                for _ in range(cfg.n_layers)]
-        elif fam == "hybrid":
-            pattern = cfg.block_pattern
-            n_units, rem = divmod(cfg.n_layers, len(pattern))
-            params["layers"] = [
-                tuple(self._hybrid_layer_params(b, kind) for kind in pattern)
-                for _ in range(n_units)]
-            if rem:  # omitted when empty, as in the reference
-                params["rem_layers"] = tuple(
-                    self._hybrid_layer_params(b, pattern[i])
-                    for i in range(rem))
-        else:  # encdec
-            params["enc_layers"] = [self._attn_mlp_layer_params(b, "ln")
-                                    for _ in range(cfg.n_enc_layers)]
-            params["enc_norm"] = _init_norm(b, cfg.d_model, "ln")
-            params["layers"] = [
-                {"ln1": _init_norm(b, cfg.d_model, "ln"),
-                 "self": attn_lib.init_attention(b, cfg),
-                 "ln2": _init_norm(b, cfg.d_model, "ln"),
-                 "cross": attn_lib.init_attention(b, cfg),
-                 "ln3": _init_norm(b, cfg.d_model, "ln"),
-                 "mlp": init_mlp(b, cfg.d_model, cfg.d_ff, cfg.mlp_type)}
-                for _ in range(cfg.n_layers)]
+        if self._table.encoder:
+            params["enc_layers"] = [self._init_layer(b, layer)
+                                    for layer in self._table.encoder]
+            params["enc_norm"] = _init_norm(b, cfg.d_model, self.norm_kind)
+        layers = [self._init_layer(b, layer) for layer in self._table.layers]
+        if cfg.family != "hybrid":
+            params["layers"] = layers
+            return params
+        n = len(cfg.block_pattern)
+        whole = cfg.n_layers // n * n
+        params["layers"] = [tuple(layers[i:i + n]) for i in range(0, whole, n)]
+        if whole < cfg.n_layers:  # omitted when empty, as in the reference
+            params["rem_layers"] = tuple(layers[whole:])
         return params
 
     # ----- head -------------------------------------------------------------
@@ -343,65 +417,122 @@ class Model:
         all-gather); ``logits`` itself without a split."""
         return partition.gather_model(logits, -1, self._vocab_share())
 
-    # ----- forward (training) ---------------------------------------------
-    def _attn_mlp_layer(self, p: Params, x: torch.Tensor, positions, *,
-                        causal: bool = True, window=None, prefix: int = 0,
-                        rope: bool = True):
-        """One attention + MLP (or MoE) layer of the training forward:
-        (x, the layer's MoE aux loss or None)."""
+    # ----- sublayers --------------------------------------------------------
+    # Each takes its parameters, its normed input h, the _Step and the
+    # layer's views of the cache ``st``, and gives (its output, the MoE aux
+    # loss or None).  "forward" (training, and whisper's encoder everywhere)
+    # reads no cache; "prefill" writes the layer's decode state into ``st``;
+    # "decode" takes one token, h [B, 1, d], and reads and updates ``st``.
+    def _attn(self, p: Params, h, step: _Step, st, *, window=None,
+              prefix: int = 0, causal: bool = True, rope: bool = True):
+        cfg = self.cfg
+        if step.mode == "decode":
+            out, _, _ = attn_lib.decode_attn(
+                p, h[:, 0], cfg, st["k"], st["v"], step.pos,
+                attn_lib.global_window(st["k"].shape[1]))
+            return out[:, None], None
+        if step.mode == "forward":
+            return attn_lib.attention(
+                p, h, cfg, positions=step.positions, causal=causal,
+                window=window, rope=rope, bidirectional_prefix=prefix), None
+        out, (k, v) = attn_lib.attention_with_kv(
+            p, h, cfg, positions=step.positions, window=window,
+            bidirectional_prefix=prefix)
+        _write(st, ("k", "v"), attn_lib.pack_cache(
+            k, v, attn_lib.global_window(st["k"].shape[1])))
+        return out, None
+
+    def _cross(self, p: Params, h, step: _Step, st):
+        cfg = self.cfg
+        if step.mode == "decode":
+            return attn_lib.decode_cross_attn(p, h[:, 0], cfg, st["xk"],
+                                              st["xv"])[:, None], None
+        if step.mode == "prefill":
+            _write(st, ("xk", "xv"), attn_lib.project_kv(p, step.enc, cfg))
+        return attn_lib.attention(p, h, cfg, kv_x=step.enc, rope=False), None
+
+    def _scan(self, block, decode, names, p: Params, h, step: _Step, st):
+        """Mamba-2 or RG-LRU: ``block`` over the sequence, ``decode`` over
+        one token; its state ``names`` in the cache."""
+        cfg = self.cfg
+        if step.mode == "forward":
+            return block(p, h, cfg), None
+        if step.mode == "prefill":
+            out, new = block(p, h, cfg, return_state=True)
+        else:
+            out, new = decode(p, h[:, 0], cfg, tuple(st[n] for n in names))
+            out = out[:, None]
+        _write(st, names, new)
+        return out, None
+
+    # ----- the runner -------------------------------------------------------
+    def _layer(self, layer: _Layer, p: Params, x: torch.Tensor, step: _Step,
+               st) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One layer under its span: (x, its MoE aux loss or None)."""
         cfg = self.cfg
         kind = self.norm_kind
-        h = _norm(p["ln1"], x, kind, cfg.norm_eps)
-        x = x + attn_lib.attention(p["attn"], h, cfg, positions=positions,
-                                   causal=causal, window=window, rope=rope,
-                                   bidirectional_prefix=prefix)
-        h = _norm(p["ln2"], x, kind, cfg.norm_eps)
-        if cfg.family == "moe":
-            y, aux = moe_lib.moe_mlp(p["mlp"], h, cfg)
-            return partition.constrain(x + y, ACT), aux
-        x = x + mlp(p["mlp"], h, cfg.mlp_type)
-        return partition.constrain(x, ACT), None
+        aux = None
+        with spans.span("model.layer", **layer.attrs):
+            for ln, sub, key in layer.subs:
+                y, a = sub.run(p[key], _norm(p[ln], x, kind, cfg.norm_eps),
+                               step, st)
+                x = _residual(x, y, cfg)
+                del y  # not held while the next sublayer runs
+                aux = a if a is not None else aux
+            if step.mode != "decode":
+                x = partition.constrain(x, ACT)
+        return x, aux
 
-    def _ssm_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        h = _norm(p["ln"], x, "rms", self.cfg.norm_eps)
-        x = x + ssm_lib.mamba2_block(p["mixer"], h, self.cfg)
-        return partition.constrain(x, ACT)
+    def _remat(self, *args):
+        """:meth:`_layer` under its own ``checkpoint``: recomputed in the
+        backward under the forward's ``partition`` rules."""
+        return checkpoint(self._layer, *args, use_reentrant=False,
+                          context_fn=partition.recompute_context)
 
-    def _hybrid_train_layer(self, p: Params, x: torch.Tensor, positions,
-                            kind: str) -> torch.Tensor:
+    def _walk(self, params: Params, layers, cache=None):
+        """Each entry of ``layers`` with its parameters and its views of
+        ``cache`` (None without one).  The callers' loops rebind x, so a
+        layer's input is freed when the layer returns."""
+        for layer in layers:
+            p = functools.reduce(operator.getitem, layer.path, params)
+            st = (None if cache is None
+                  else self._views(cache, layer.attrs["layer"]))
+            yield layer, p, st
+
+    def _inputs(self, params: Params, batch: Dict[str, torch.Tensor],
+                mode: str, remat: bool = False) -> Tuple[torch.Tensor, _Step]:
+        """The forward's and prefill's input: the token embeddings [B, S, d]
+        (the vlm's ``patch_embeds`` over the first positions) and the
+        :class:`_Step` (the positions; whisper's encoded ``frames``)."""
         cfg = self.cfg
-        h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
-        if kind == "rec":
-            out = rglru_lib.recurrent_block(p["block"], h, cfg)
-        elif kind == "mamba":
-            out = ssm_lib.mamba2_block(p["block"], h, cfg)
-        else:
-            out = attn_lib.attention(p["block"], h, cfg, positions=positions,
-                                     causal=True, window=cfg.local_window)
-        x = _residual(x, out, cfg)
-        h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-        x = _residual(x, mlp(p["mlp"], h, cfg.mlp_type), cfg)
-        return partition.constrain(x, ACT)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = embed_lookup(params["embed"], tokens, cfg.embedding_multiplier)
+        if cfg.family == "vlm":
+            pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
+            x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
+        positions = torch.arange(tokens.shape[1], device=self.device)[None, :]
+        enc = (self._encode(params, torch.as_tensor(
+            batch["frames"], device=self.device), remat=remat)
+               if cfg.family == "encdec" else None)
+        return x, _Step(mode, positions, enc=enc)
 
-    def _hybrid_layers(self, params: Params):
-        """(layer params, kind) of every hybrid layer in order: the pattern
-        units' layers, then the remainder's."""
-        flat = [p for unit in params["layers"] for p in unit]
-        flat += params.get("rem_layers", ())
-        return list(zip(flat, self.cfg.block_types()))
-
-    def _decoder_layer(self, p: Params, x: torch.Tensor, positions,
-                       enc: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: Params, frames: torch.Tensor, *,
+                remat: bool = False) -> torch.Tensor:
+        """Whisper's encoder over precomputed frame embeddings [B, F, d]
+        (the conv frontend is a stub in the reference too): sinusoidal
+        positions, non-causal attention without rope, layernorm; with
+        ``remat`` each layer is recomputed in the backward."""
         cfg = self.cfg
-        h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
-        x = x + attn_lib.attention(p["self"], h, cfg, positions=positions,
-                                   causal=True)
-        h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
-        x = x + attn_lib.attention(p["cross"], h, cfg, kv_x=enc, rope=False)
-        h = _norm(p["ln3"], x, "ln", cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg.mlp_type)
-        return partition.constrain(x, ACT)
+        pos = torch.from_numpy(sinusoidal_positions(
+            frames.shape[1], cfg.d_model)).to(self.device)
+        x = frames.to(COMPUTE_DTYPE) + pos.to(COMPUTE_DTYPE)
+        x = partition.constrain(x, ACT)
+        run, step = (self._remat if remat else self._layer), _Step("forward")
+        for layer, p, _ in self._walk(params, self._table.encoder):
+            x, _ = run(layer, p, x, step, None)
+        return _norm(params["enc_norm"], x, self.norm_kind, cfg.norm_eps)
 
+    # ----- forward (training) ---------------------------------------------
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training forward: (pre-head hidden states [B, S, d] after the
@@ -411,51 +542,15 @@ class Model:
         each layer (encdec: each encoder and decoder layer) is recomputed
         in the backward instead of keeping its activations, as the
         reference's ``jax.checkpoint`` does."""
-        cfg = self.cfg
-        fam = cfg.family
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        B, S = tokens.shape
-        x = embed_lookup(params["embed"], tokens, cfg.embedding_multiplier)
-        if fam == "vlm":
-            pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
-            x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
-        positions = torch.arange(S, device=self.device)[None, :]
+        x, step = self._inputs(params, batch, "forward", remat)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-
-        def run(fn, *args, **kw):
-            if remat:
-                return checkpoint(fn, *args, use_reentrant=False,
-                                  context_fn=partition.recompute_context,
-                                  **kw)
-            return fn(*args, **kw)
-
-        if fam in ("dense", "vlm", "moe"):
-            prefix = cfg.n_patches if fam == "vlm" else 0
-
-            def layer(p, x):
-                return self._attn_mlp_layer(p, x, positions,
-                                            window=cfg.sliding_window,
-                                            prefix=prefix)
-
-            for i, p in enumerate(params["layers"]):
-                x, a = run(_layer, layer, i, p, x)
-                if a is not None:
-                    aux = aux + a
-        elif fam == "ssm":
-            for i, p in enumerate(params["layers"]):
-                x = run(_layer, self._ssm_layer, i, p, x)
-        elif fam == "hybrid":
-            for i, (p, kind) in enumerate(self._hybrid_layers(params)):
-                x = run(_layer, self._hybrid_train_layer, i, p, x, positions,
-                        kind, kind=kind)
-        else:  # encdec
-            enc = self._encode(params, torch.as_tensor(batch["frames"],
-                                                       device=self.device),
-                               remat=remat)
-            for i, p in enumerate(params["layers"]):
-                x = run(_layer, self._decoder_layer, i, p, x, positions, enc)
-        x = _norm(params["final_norm"], x, self.norm_kind, cfg.norm_eps)
-        return x, aux
+        run = self._remat if remat else self._layer
+        for layer, p, _ in self._walk(params, self._table.layers):
+            x, a = run(layer, p, x, step, None)
+            if a is not None:
+                aux = aux + a
+        return _norm(params["final_norm"], x, self.norm_kind,
+                     self.cfg.norm_eps), aux
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 remat: bool = True) -> Tuple[torch.Tensor, dict]:
@@ -506,124 +601,51 @@ class Model:
     def init_cache(self, batch: int, max_seq: int):
         """Zeroed decode cache in the reference's layout."""
         cfg = self.cfg
-        fam = cfg.family
         dev = self.device
 
         def kv(n_layers, window):
-            return attn_lib.init_decode_cache(cfg, n_layers, batch, window,
+            k, v = attn_lib.init_decode_cache(cfg, n_layers, batch, window,
                                               device=dev)[0]
-
-        if fam in ("dense", "vlm", "moe"):
-            k, v = kv(cfg.n_layers, self.cache_window(max_seq))
             return {"k": k, "v": v}
-        if fam == "ssm":
-            conv, ssm = ssm_lib.init_mamba2_state(cfg, batch, dev)
-            L = cfg.n_layers
-            return {"conv": conv.expand((L,) + conv.shape).clone(),
-                    "ssm": ssm.expand((L,) + ssm.shape).clone()}
-        if fam == "hybrid":
+
+        def state(kind, n):
+            if kind == "attn":
+                return kv(n, self.attn_window(max_seq))
+            names, init = {
+                "rec": (("conv", "h"), rglru_lib.init_rglru_state),
+                "mamba": (("conv", "ssm"), ssm_lib.init_mamba2_state),
+            }[kind]
+            return {name: t.expand((n,) + t.shape).clone()
+                    for name, t in zip(names, init(cfg, batch, dev))}
+
+        if cfg.family == "ssm":
+            return state("mamba", cfg.n_layers)
+        if cfg.family == "hybrid":
             pattern = cfg.block_pattern
             n_units, rem = divmod(cfg.n_layers, len(pattern))
-
-            def state(kind, n):
-                if kind == "attn":
-                    k, v = kv(n, self.attn_window(max_seq))
-                    return {"k": k, "v": v}
-                names, init = {
-                    "rec": (("conv", "h"), rglru_lib.init_rglru_state),
-                    "mamba": (("conv", "ssm"), ssm_lib.init_mamba2_state),
-                }[kind]
-                return {name: t.expand((n,) + t.shape).clone()
-                        for name, t in zip(names, init(cfg, batch, dev))}
-
             return {"units": tuple(state(kind, n_units) for kind in pattern),
                     "rem": tuple({name: t[0] for name, t in
                                   state(pattern[i], 1).items()}
                                  for i in range(rem))}
-        # encdec
-        k, v = kv(cfg.n_layers, max_seq)
-        xshape = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
-                  cfg.head_dim_)
-        return {"k": k, "v": v,
-                "xk": torch.zeros(xshape, dtype=COMPUTE_DTYPE, device=dev),
-                "xv": torch.zeros(xshape, dtype=COMPUTE_DTYPE, device=dev)}
+        if cfg.family == "encdec":
+            xshape = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
+                      cfg.head_dim_)
+            return {**kv(cfg.n_layers, max_seq),
+                    "xk": torch.zeros(xshape, dtype=COMPUTE_DTYPE, device=dev),
+                    "xv": torch.zeros(xshape, dtype=COMPUTE_DTYPE, device=dev)}
+        return kv(cfg.n_layers, self.cache_window(max_seq))
 
-    # ----- layers -----------------------------------------------------------
-    def _ffn(self, p: Params, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.family == "moe":
-            return moe_lib.moe_mlp(p, h, self.cfg)[0]
-        return mlp(p, h, self.cfg.mlp_type)
-
-    def _hybrid_layer(self, p: Params, x, positions, kind: str, max_seq: int):
-        """One hybrid layer at prefill: (x, its decode state)."""
+    def _views(self, cache: dict, i: int) -> dict:
+        """Layer ``i``'s decode state: its views of ``cache``, by name."""
         cfg = self.cfg
-        h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
-        if kind == "rec":
-            out, (conv, hst) = rglru_lib.recurrent_block(
-                p["block"], h, cfg, return_state=True)
-            st = {"conv": conv, "h": hst}
-        elif kind == "mamba":
-            out, (conv, ssm) = ssm_lib.mamba2_block(p["block"], h, cfg,
-                                                    return_state=True)
-            st = {"conv": conv, "ssm": ssm}
-        else:
-            out, (k, v) = attn_lib.attention_with_kv(
-                p["block"], h, cfg, positions=positions,
-                window=cfg.local_window)
-            k, v = attn_lib.pack_cache(k, v, self.attn_window(max_seq))
-            st = {"k": k, "v": v}
-        x = _residual(x, out, cfg)
-        h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-        x = _residual(x, mlp(p["mlp"], h, cfg.mlp_type), cfg)
-        return partition.constrain(x, ACT), st
+        if cfg.family != "hybrid":
+            return {name: t[i] for name, t in cache.items()}
+        u, j = divmod(i, len(cfg.block_pattern))
+        if u == cfg.n_layers // len(cfg.block_pattern):
+            return cache["rem"][j]
+        return {name: t[u] for name, t in cache["units"][j].items()}
 
-    def _hybrid_decode(self, p: Params, x, kind: str, st: dict, pos: int):
-        """One hybrid layer at decode; ``st`` is updated in place."""
-        cfg = self.cfg
-        h = _norm(p["ln1"], x[:, None], "rms", cfg.norm_eps)[:, 0]
-        if kind == "rec":
-            out, (conv, hst) = rglru_lib.recurrent_block_decode(
-                p["block"], h, cfg, (st["conv"], st["h"]))
-            st["conv"].copy_(conv)
-            st["h"].copy_(hst)
-        elif kind == "mamba":
-            out, (conv, ssm) = ssm_lib.mamba2_decode(
-                p["block"], h, cfg, (st["conv"], st["ssm"]))
-            st["conv"].copy_(conv)
-            st["ssm"].copy_(ssm)
-        else:
-            out, _, _ = attn_lib.decode_attn(
-                p["block"], h, cfg, st["k"], st["v"], pos,
-                attn_lib.global_window(st["k"].shape[1]))
-        x = _residual(x, out, cfg)
-        h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
-        return _residual(x, mlp(p["mlp"], h, cfg.mlp_type)[:, 0], cfg)
-
-    def _encode(self, params: Params, frames: torch.Tensor, *,
-                remat: bool = False) -> torch.Tensor:
-        """Whisper's encoder over precomputed frame embeddings [B, F, d]
-        (the conv frontend is a stub in the reference too): sinusoidal
-        positions, non-causal attention without rope, layernorm; with
-        ``remat`` each layer is recomputed in the backward."""
-        cfg = self.cfg
-        F = frames.shape[1]
-        pos = torch.from_numpy(sinusoidal_positions(F, cfg.d_model)).to(
-            self.device)
-        x = frames.to(COMPUTE_DTYPE) + pos.to(COMPUTE_DTYPE)
-        x = partition.constrain(x, ACT)
-
-        def layer(p, x):
-            return self._attn_mlp_layer(p, x, None, causal=False,
-                                        rope=False)[0]
-
-        for i, p in enumerate(params["enc_layers"]):
-            x = (checkpoint(_layer, layer, i, p, x, encoder=True,
-                            use_reentrant=False,
-                            context_fn=partition.recompute_context)
-                 if remat else _layer(layer, i, p, x, encoder=True))
-        return _norm(params["enc_norm"], x, "ln", cfg.norm_eps)
-
-    # ----- prefill ----------------------------------------------------------
+    # ----- prefill and decode -----------------------------------------------
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_seq: int) -> Tuple[torch.Tensor, dict]:
@@ -632,149 +654,22 @@ class Model:
         the first positions, and ``batch["frames"]`` [B, n_frames, d] for
         encdec); returns (last-token logits [B, V] f32, this rank's
         columns under a split of the vocab; decode cache)."""
-        cfg = self.cfg
-        fam = cfg.family
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        B, S = tokens.shape
-        x = embed_lookup(params["embed"], tokens, cfg.embedding_multiplier)
-        if fam == "vlm":
-            pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
-            x = torch.cat([pe.to(x.dtype), x[:, cfg.n_patches:]], dim=1)
-        positions = torch.arange(S, device=self.device)[None, :]
-        cache = self.init_cache(B, max_seq)
-        if fam in ("dense", "vlm", "moe"):
-            W = self.cache_window(max_seq)
-            prefix = cfg.n_patches if fam == "vlm" else 0
-
-            def layer(p, x):
-                h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
-                out, (k, v) = attn_lib.attention_with_kv(
-                    p["attn"], h, cfg, positions=positions,
-                    window=cfg.sliding_window, bidirectional_prefix=prefix)
-                x = x + out
-                h = _norm(p["ln2"], x, "rms", cfg.norm_eps)
-                x = partition.constrain(x + self._ffn(p["mlp"], h), ACT)
-                return x, attn_lib.pack_cache(k, v, W)
-
-            for i, p in enumerate(params["layers"]):
-                x, (kc, vc) = _layer(layer, i, p, x)
-                cache["k"][i].copy_(kc)
-                cache["v"][i].copy_(vc)
-        elif fam == "ssm":
-            def layer(p, x):
-                h = _norm(p["ln"], x, "rms", cfg.norm_eps)
-                out, state = ssm_lib.mamba2_block(p["mixer"], h, cfg,
-                                                  return_state=True)
-                return partition.constrain(x + out, ACT), state
-
-            for i, p in enumerate(params["layers"]):
-                x, (conv, ssm) = _layer(layer, i, p, x)
-                cache["conv"][i].copy_(conv)
-                cache["ssm"][i].copy_(ssm)
-        elif fam == "hybrid":
-            pattern = cfg.block_pattern
-            for u, unit in enumerate(params["layers"]):
-                for i, kind in enumerate(pattern):
-                    x, st = _layer(self._hybrid_layer, u * len(pattern) + i,
-                                   unit[i], x, positions, kind, max_seq,
-                                   kind=kind)
-                    for name, t in st.items():
-                        cache["units"][i][name][u].copy_(t)
-            first = len(params["layers"]) * len(pattern)
-            for i, p in enumerate(params.get("rem_layers", ())):
-                x, st = _layer(self._hybrid_layer, first + i, p, x,
-                               positions, pattern[i], max_seq,
-                               kind=pattern[i])
-                for name, t in st.items():
-                    cache["rem"][i][name].copy_(t)
-        else:  # encdec
-            enc = self._encode(params, torch.as_tensor(batch["frames"],
-                                                       device=self.device))
-
-            def layer(p, x):
-                h = _norm(p["ln1"], x, "ln", cfg.norm_eps)
-                out, (k, v) = attn_lib.attention_with_kv(
-                    p["self"], h, cfg, positions=positions)
-                x = x + out
-                h = _norm(p["ln2"], x, "ln", cfg.norm_eps)
-                xk, xv = attn_lib.project_kv(p["cross"], enc, cfg)
-                x = x + attn_lib.attention(p["cross"], h, cfg, kv_x=enc,
-                                           rope=False)
-                h = _norm(p["ln3"], x, "ln", cfg.norm_eps)
-                x = x + mlp(p["mlp"], h, cfg.mlp_type)
-                x = partition.constrain(x, ACT)
-                kc, vc = attn_lib.pack_cache(k, v, max_seq)
-                return x, (("k", kc), ("v", vc), ("xk", xk), ("xv", xv))
-
-            for i, p in enumerate(params["layers"]):
-                x, st = _layer(layer, i, p, x)
-                for name, t in st:
-                    cache[name][i].copy_(t)
+        x, step = self._inputs(params, batch, "prefill")
+        cache = self.init_cache(x.shape[0], max_seq)
+        for layer, p, st in self._walk(params, self._table.layers, cache):
+            x, _ = self._layer(layer, p, x, step, st)
         return self._logits(params, x[:, -1]), cache
 
-    # ----- decode -----------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, params: Params, cache: dict, token: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, dict]:
         """One token.  token: [B] int; pos: the current length.  Returns
         (logits [B, V] f32, this rank's columns under a split of the
         vocab; the cache, updated in place)."""
-        cfg = self.cfg
-        fam = cfg.family
         token = torch.as_tensor(token, device=self.device)
-        pos = int(pos)
         x = embed_lookup(params["embed"], token[:, None],
-                         cfg.embedding_multiplier)[:, 0]           # [B, d]
-        if fam in ("dense", "vlm", "moe"):
-            W = attn_lib.global_window(cache["k"].shape[2])
-
-            def layer(p, x, k, v):
-                h = _norm(p["ln1"], x, "rms", cfg.norm_eps)
-                out, _, _ = attn_lib.decode_attn(p["attn"], h, cfg, k, v,
-                                                 pos, W)
-                x = x + out
-                h = _norm(p["ln2"], x[:, None], "rms", cfg.norm_eps)
-                return x + self._ffn(p["mlp"], h)[:, 0]
-
-            for i, p in enumerate(params["layers"]):
-                x = _layer(layer, i, p, x, cache["k"][i], cache["v"][i])
-        elif fam == "ssm":
-            def layer(p, x, state):
-                h = _norm(p["ln"], x, "rms", cfg.norm_eps)
-                out, state = ssm_lib.mamba2_decode(p["mixer"], h, cfg, state)
-                return x + out, state
-
-            for i, p in enumerate(params["layers"]):
-                x, (conv, ssm) = _layer(layer, i, p, x, (cache["conv"][i],
-                                                         cache["ssm"][i]))
-                cache["conv"][i].copy_(conv)
-                cache["ssm"][i].copy_(ssm)
-        elif fam == "hybrid":
-            pattern = cfg.block_pattern
-            for u, unit in enumerate(params["layers"]):
-                for i, kind in enumerate(pattern):
-                    st = {name: t[u] for name, t in
-                          cache["units"][i].items()}
-                    x = _layer(self._hybrid_decode, u * len(pattern) + i,
-                               unit[i], x, kind, st, pos, kind=kind)
-            first = len(params["layers"]) * len(pattern)
-            for i, p in enumerate(params.get("rem_layers", ())):
-                x = _layer(self._hybrid_decode, first + i, p, x, pattern[i],
-                           cache["rem"][i], pos, kind=pattern[i])
-        else:  # encdec
-            W = attn_lib.global_window(cache["k"].shape[2])
-
-            def layer(p, x, k, v, xk, xv):
-                h = _norm(p["ln1"], x[:, None], "ln", cfg.norm_eps)[:, 0]
-                out, _, _ = attn_lib.decode_attn(p["self"], h, cfg, k, v,
-                                                 pos, W)
-                x = x + out
-                h = _norm(p["ln2"], x[:, None], "ln", cfg.norm_eps)[:, 0]
-                x = x + attn_lib.decode_cross_attn(p["cross"], h, cfg, xk, xv)
-                h = _norm(p["ln3"], x[:, None], "ln", cfg.norm_eps)
-                return x + mlp(p["mlp"], h, cfg.mlp_type)[:, 0]
-
-            for i, p in enumerate(params["layers"]):
-                x = _layer(layer, i, p, x, *(cache[name][i] for name in
-                                             ("k", "v", "xk", "xv")))
-        return self._logits(params, x), cache
+                         self.cfg.embedding_multiplier)          # [B, 1, d]
+        step = _Step("decode", pos=int(pos))
+        for layer, p, st in self._walk(params, self._table.layers, cache):
+            x, _ = self._layer(layer, p, x, step, st)
+        return self._logits(params, x[:, 0]), cache

@@ -151,6 +151,22 @@ def test_prefill_against_decode(arch):
         np.testing.assert_allclose(logits.numpy(), want.numpy(), atol=bar)
 
 
+@pytest.mark.parametrize("arch", SERVED)
+def test_forward_against_prefill(arch):
+    """The training forward and prefill run the same layers: the forward's
+    last position (normed already) through the head, as ``Model._logits``
+    takes it, gives prefill's logits."""
+    m, params = _pair(arch)[2:4]
+    batch = _tbatch(m.cfg, _tokens(m.cfg, 2, 12, seed=8))
+    with torch.no_grad():
+        x, _ = m.forward(params, batch, remat=False)
+    logits = (x[:, -1] @ m.head_matrix(params).to(torch.bfloat16)).float()
+    logits = m._mask_pad_logits(logits / m.cfg.logits_scaling)
+    want, _ = m.prefill(params, batch, max_seq=16)
+    bar = MOE_CONSIST_BAR if m.cfg.family == "moe" else LOGIT_BAR
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), atol=bar)
+
+
 def test_ring_buffer_wraparound_matches_jax():
     """Decode far past danube's reduced window W = 32: the ring cache keeps
     exactly the last W tokens.  Both models are fed JAX's greedy tokens, so
